@@ -20,7 +20,14 @@ Phases, each failing the run (non-zero exit, no result line) on a miss:
    mode on the same prompt; the streams must be identical and every
    kernel's launch count over the controller run above 0;
 5. the i8g path: the same on the toy-scale Q6_K pair, where every matmul
-   goes through the i8g kernel.
+   goes through the i8g kernel;
+6. the CLI: `cli.main` and `cli.speculative --engine controller -np 1`
+   called in process on the 7B Q4_K pair under PIPEINFER_WEIGHT_LAYOUT=
+   k_major, then i8, then k4, must print identical text, and each
+   layout's kernel and the cell-attention kernel must have launched in the
+   speculative run; on the toy pair under the default layout, `--engine
+   sync` and the default `-np 3` print the same text as `cli.main`, and so
+   does one `python -m pipeinfer_tpu_torch.cli.speculative` subprocess.
 
 The last lines printed are the card line, one JSON line with a record per
 kernel, and {"ok": true, "device": {...}}. Details of every shape go to
@@ -30,9 +37,12 @@ chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
+import io
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -202,6 +212,156 @@ def phase_qmatmul(records: dict, details: list):
             shape=f"M=1 N={r['N']} K={r['K']} (w_down)")
 
 
+EXACT_FORMATS = {  # formats timed at every 7B shape; the rest at EXTRA_SHAPE
+    "k_major": ("Q4_K", "Q6_K", "Q8_0"), "i8": ("Q4_K", "Q6_K", "Q8_0"), "k4": ("Q4_K", "Q4_0"),
+}
+EXTRA_FORMATS = ("Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q2_K", "Q3_K", "Q5_K")  # k_major only
+EXTRA_SHAPE = {"wo": (4096, 4096)}
+EXACT_RECORDS = {  # kernel -> (layout, format of its record, source, TPU kernel)
+    "kmajor_matmul": ("k_major", "Q4_K", "pipeinfer_tpu_torch/csrc/qmatmul_kmajor.cu",
+                      "pipeinfer_tpu/ops/qmatmul.py:544"),
+    "i8_matmul": ("i8", "Q4_K", "pipeinfer_tpu_torch/csrc/qmatmul_i8.cu",
+                  "pipeinfer_tpu/ops/qmatmul.py:661"),
+    "k4_matmul": ("k4", "Q4_K", "pipeinfer_tpu_torch/csrc/qmatmul_k4.cu",
+                  "pipeinfer_tpu/ops/qmatmul.py:682"),
+}
+
+
+def _rand_exact(layout: str, qname: str, n: int, k: int, dev, g):
+    """A random QuantTensor of an exact layout on the card: random bytes are
+    valid quants of every format, scales and biases random and positive
+    (Q8_0: no bias)."""
+    import torch
+
+    from pipeinfer_tpu_torch.gguf.constants import GGMLQuantType
+    from pipeinfer_tpu_torch.ops import qmatmul as Q
+    from pipeinfer_tpu_torch.quant.pack import FORMAT_INFO
+
+    qtype = GGMLQuantType[qname]
+    bits, grp = FORMAT_INFO[qtype]
+
+    def u8(rows):
+        return torch.randint(0, 256, (rows, n), dtype=torch.uint8, device=dev, generator=g)
+
+    def f32(rows, scale):
+        return torch.rand(rows, n, device=dev, generator=g) * scale + scale / 10
+
+    if layout == "k4":
+        r2 = -(-k // 2 // 256) * 256
+        qs = u8(r2)
+        qs[k // 2:] = 0
+        planes = [f32(r2 // 32, 0.01), f32(r2 // 32, 0.01), f32(r2 // 32, 0.08),
+                  f32(r2 // 32, 0.08)]
+        for p in planes:
+            p[k // 64:] = 0
+        return Q.QuantTensor(qs, None, planes[0], planes[2], qtype, (n, k), "k4",
+                             planes[1], planes[3])
+    scales = f32(k // grp, 0.01)
+    bias = torch.zeros_like(scales) if qtype == GGMLQuantType.Q8_0 else f32(k // grp, 0.08)
+    if layout == "i8":
+        lo, hi = (-127, 128) if bits == 8 else (0, 1 << bits)
+        qs = torch.randint(lo, hi, (k, n), dtype=torch.int8, device=dev, generator=g)
+        return Q.QuantTensor(qs, None, scales, bias, qtype, (n, k), "i8")
+    if bits == 8:
+        qs = torch.randint(-128, 128, (k, n), dtype=torch.int8, device=dev, generator=g)
+    else:
+        qs = u8(k // Q._QS_ROWS[bits])
+    qh = u8(k // Q._QH_DIV[bits]) if bits in Q._QH_DIV else None
+    return Q.QuantTensor(qs, qh, scales, bias, qtype, (n, k), "k_major")
+
+
+def _exact_inputs(layout: str, x, qt):
+    """(kernel, plain version, its arguments) for one call of an exact
+    layout's kernel on x, as qmatmul would make them."""
+    import torch
+
+    from pipeinfer_tpu_torch.gguf.constants import GGMLQuantType
+    from pipeinfer_tpu_torch.ops import qmatmul as Q
+
+    xb = x.to(torch.bfloat16)
+    if layout == "k_major":
+        bias = None if qt.qtype == GGMLQuantType.Q8_0 else qt.bias
+        return (Q.kmajor_matmul, lambda *a: Q._kmajor_plain(*a, qt.bits, qt.group),
+                (xb, qt.qs, qt.qh, qt.scales, bias), dict(bits=qt.bits, group=qt.group))
+    if layout == "i8":
+        has_bias = qt.qtype != GGMLQuantType.Q8_0
+        xg = Q._group_sums(x, qt.group) if has_bias else None
+        return (Q.i8_matmul, lambda *a: Q._i8_plain(*a, qt.group),
+                (xb, xg, qt.qs, qt.scales, qt.bias if has_bias else None), dict(group=qt.group))
+    return (Q.k4_matmul, Q._k4_plain,
+            (xb, Q._group_sums(x, 32), qt.qs, qt.scales, qt.scales2, qt.bias, qt.bias2), {})
+
+
+def phase_exact(records: dict, details: list):
+    """The k_major, i8 and k4 kernels against their plain versions at the
+    7B shapes (and k_major's other formats at one shape)."""
+    import torch
+
+    from pipeinfer_tpu_torch.ops import qmatmul as Q
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    worst: dict = {}
+    rep: dict = {}
+    plan = [(layout, q, I4G_SHAPES) for layout, qs in EXACT_FORMATS.items() for q in qs] \
+        + [("k_major", q, EXTRA_SHAPE) for q in EXTRA_FORMATS]
+    for layout, qname, shapes in plan:
+        for name, (n, k) in shapes.items():
+            one = _rand_exact(layout, qname, n, k, dev, g)
+            qts = [one] + [_rand_exact(layout, qname, n, k, dev, g)
+                           for _ in range(copies_for(one.nbytes()) - 1)]
+            w_bf16 = Q.dequant_T(one, torch.bfloat16)  # [K, N], for the yardstick only
+            for m in MS:
+                x = torch.randn(m, k, device=dev, generator=g)
+                calls = [_exact_inputs(layout, x, qt) for qt in qts]
+                kern, plain, args, kw = calls[0]
+                got = kern(*args, **kw)
+                want = plain(*args)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                scale = want.abs().max().item()
+                if not err <= MATMUL_RTOL * scale:
+                    raise AssertionError(f"{kern.__name__} {qname} {name} M={m}: max err {err} > "
+                                         f"{MATMUL_RTOL} * {scale}")
+                key = kern.__name__
+                worst[key] = max(worst.get(key, 0.0), err)
+                it = iter(range(1 << 30))
+
+                def timed():
+                    _, _, a, kwa = calls[next(it) % len(calls)]
+                    kern(*a, **kwa)
+
+                k_ms = gpu_ms(timed, iters=20)
+                p_ms = gpu_ms(lambda: plain(*args), iters=3, warmup=1)
+                xb = x.to(torch.bfloat16)
+                lib_ms = gpu_ms(lambda: xb @ w_bf16, iters=20)
+                moved = [a for a in args if a is not None]
+                if layout == "k4":  # K/2 byte rows and K/64 scale rows; the padding is never read
+                    moved = [*moved[:2], moved[2][:k // 2], *(p[:k // 64] for p in moved[3:])]
+                b_ms, b_by = bound(nbytes(*moved) + m * n * 4, 2 * m * n * k, "bf16")
+                row = dict(kernel=key, layout=layout, qtype=qname, tensor=name, N=n, K=k, M=m,
+                           max_abs_err=err, tol=MATMUL_RTOL * scale, ms=k_ms, plain_ms=p_ms,
+                           yardstick_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                details.append(row)
+                log(f"{key:13s} {qname:4s} {name:7s} [{n}x{k}] M={m:2d}: err {err:.3g} "
+                    f"(tol {MATMUL_RTOL * scale:.3g})  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms"
+                    f"  bf16 GEMM {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+                if name == "w_down" and m == 1 and qname == EXACT_RECORDS[key][1]:
+                    rep[key] = row
+            del qts, one, w_bf16, calls
+    for key, (layout, qname, src, tpu) in EXACT_RECORDS.items():
+        r = rep[key]
+        records[key] = dict(
+            name=key, route="cuda", source=src, replaces=tpu, launches=0,
+            max_abs_err=worst[key], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"],
+            # no PyTorch call takes these packed planes; a dense bf16 GEMM on
+            # the dequantized weight (the same output) is reported apart
+            library_ms=None, yardstick_ms=r["yardstick_ms"],
+            yardstick="torch.matmul bf16 on the dequantized weight",
+            shape=f"M=1 N={r['N']} K={r['K']} (w_down, {qname})")
+
+
 def phase_attention(records: dict, details: list):
     import torch
     import torch.nn.functional as F
@@ -360,12 +520,113 @@ def run_pair(label: str, scale: str, qtype_name: str, eps: float, n_predict: int
 
 
 # ---------------------------------------------------------------------------
+# the CLI entry points
+# ---------------------------------------------------------------------------
+
+CLI_PROMPT = "Once upon a time, there was a little robot who wanted to see the sea. Every day"
+CLI_GREEDY = ["--temp", "0", "--repeat-penalty", "1.0", "--repeat-last-n", "0", "--ignore-eos",
+              "-c", "1024"]
+
+
+def _cli_text(entry, argv) -> tuple[str, float]:
+    """stdout of one in-process CLI call, and its seconds (load included)."""
+    import torch
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = entry(argv)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"CLI {argv[:2]}... exited {rc}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return buf.getvalue(), took
+
+
+@contextlib.contextmanager
+def _layout(layout: str | None):
+    old = os.environ.pop("PIPEINFER_WEIGHT_LAYOUT", None)
+    if layout:
+        os.environ["PIPEINFER_WEIGHT_LAYOUT"] = layout
+    try:
+        yield
+    finally:
+        os.environ.pop("PIPEINFER_WEIGHT_LAYOUT", None)
+        if old is not None:
+            os.environ["PIPEINFER_WEIGHT_LAYOUT"] = old
+
+
+def run_cli_layout(label, layout, pair, n_predict, counters, kernel) -> dict:
+    """cli.main, then cli.speculative (controller, -np 1) under one weight
+    layout: identical text, and `kernel` and cell attention launched in
+    the speculative run (counts set to 0 just before it)."""
+    from pipeinfer_tpu_torch.cli import main as cli_main
+    from pipeinfer_tpu_torch.cli import speculative as cli_spec
+
+    t_path, d_path = map(str, pair)
+    common = ["-m", t_path, "-p", CLI_PROMPT, "-n", str(n_predict), *CLI_GREEDY]
+    with _layout(layout):
+        want, t_main = _cli_text(cli_main.main, common)
+        for fn in counters.values():
+            fn.launches = 0
+        got, t_spec = _cli_text(cli_spec.main, common + ["-md", d_path, "--engine", "controller",
+                                                         "-np", "1"])
+        launches = {k: fn.launches for k, fn in counters.items()}
+    if got != want:
+        raise AssertionError(f"[{label}] cli.speculative printed {got[-200:]!r}, cli.main "
+                             f"{want[-200:]!r}")
+    for k in (kernel, "cell_attention"):
+        if launches[k] == 0:
+            raise AssertionError(f"[{label}] cli.speculative never launched {k}")
+    log(f"[{label}] cli.main and cli.speculative print the same {len(want)} characters "
+        f"({t_main:.1f} s and {t_spec:.1f} s, loads included); launches {launches}")
+    return dict(label=label, layout=layout, target=t_path, n_predict=n_predict, chars=len(want),
+                main_s=t_main, speculative_s=t_spec, launches=launches, text_tail=want[-120:])
+
+
+def run_cli_engines(pair, n_predict) -> dict:
+    """Under the default layout: --engine sync, the default -np 3 and a
+    `python -m pipeinfer_tpu_torch.cli.speculative` subprocess print what
+    cli.main prints."""
+    from pipeinfer_tpu_torch.cli import main as cli_main
+    from pipeinfer_tpu_torch.cli import speculative as cli_spec
+
+    t_path, d_path = map(str, pair)
+    common = ["-m", t_path, "-p", CLI_PROMPT, "-n", str(n_predict), *CLI_GREEDY]
+    spec = common + ["-md", d_path]
+    res = {}
+    with _layout(None):
+        want, res["main_s"] = _cli_text(cli_main.main, common)
+        for name, extra in (("sync", ["--engine", "sync"]), ("trees_np3", [])):
+            got, res[f"{name}_s"] = _cli_text(cli_spec.main, spec + extra)
+            if got != want:
+                raise AssertionError(f"[cli {name}] printed {got[-200:]!r}, cli.main "
+                                     f"{want[-200:]!r}")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "pipeinfer_tpu_torch.cli.speculative",
+                               *spec, "--engine", "controller", "-np", "1"], cwd=ROOT,
+                              capture_output=True, text=True, timeout=600)
+        res["subprocess_s"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m pipeinfer_tpu_torch.cli.speculative exited "
+                             f"{proc.returncode}:\n{proc.stderr[-2000:]}")
+    if proc.stdout != want:
+        raise AssertionError(f"[cli subprocess] printed {proc.stdout[-200:]!r}, cli.main "
+                             f"{want[-200:]!r}")
+    log(f"[cli toy] --engine sync, -np 3 and the module subprocess print cli.main's "
+        f"{len(want)} characters ({res})")
+    return dict(label="cli_engines", target=t_path, n_predict=n_predict, chars=len(want), **res)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="kernels,main,i8g",
-                    help="comma list of kernels, main, i8g (default: all)")
+    ap.add_argument("--phases", default="kernels,main,i8g,cli",
+                    help="comma list of kernels, main, i8g, cli (default: all)")
     ap.add_argument("--n-predict", type=int, default=128)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -402,12 +663,14 @@ def main() -> int:
                 log(f"  {k}: {line.strip()}")
 
     counters = {"i4g_matmul": Q.i4g_matmul, "i8g_matmul": Q.i8g_matmul,
-                "cell_attention": CA.cell_attention}
+                "kmajor_matmul": Q.kmajor_matmul, "i8_matmul": Q.i8_matmul,
+                "k4_matmul": Q.k4_matmul, "cell_attention": CA.cell_attention}
     records: dict = {}
     details: list = []
     runs: list = []
     if "kernels" in phases:
         phase_qmatmul(records, details)
+        phase_exact(records, details)
         phase_attention(records, details)
     if "main" in phases:
         runs.append(run_pair("7b_q4k", "7b", "Q4_K", 0.02, args.n_predict, counters))
@@ -423,6 +686,19 @@ def main() -> int:
                 raise AssertionError(f"the Q6_K path never launched {k}")
         if "i8g_matmul" in records:
             records["i8g_matmul"]["launches"] = runs[-1]["launches"]["i8g_matmul"]
+    if "cli" in phases:
+        from pipeinfer_tpu_torch.tools.benchpair import cached_bench_pair
+
+        bench = ROOT / "build" / "bench"
+        pair_7b = cached_bench_pair(bench, "7b", "Q4_K", 0.02, log=log)
+        for layout, kernel in (("k_major", "kmajor_matmul"), ("i8", "i8_matmul"),
+                               ("k4", "k4_matmul")):
+            label = f"cli_{layout}_{pair_7b[0].parent.name}"
+            runs.append(run_cli_layout(label, layout, pair_7b, args.n_predict, counters, kernel))
+            if kernel in records:
+                records[kernel]["launches"] = runs[-1]["launches"][kernel]
+        runs.append(run_cli_engines(cached_bench_pair(bench, "toy", "Q6_K", 0.02, log=log),
+                                    args.n_predict))
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

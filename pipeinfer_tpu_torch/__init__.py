@@ -7,10 +7,12 @@ JAX package's Pallas kernels rewritten by hand in CUDA C++ for Hopper
 easy to find; the port imports ``torch`` and never ``jax``, and nothing of
 ``pipeinfer_tpu`` — the jax-free modules it needs are kept as copies.
 
-Entry points (``models.load_model``, ``runtime.context.InferenceContext``,
-``spec.controller.PipeInferController``) run on ``cuda`` unless the caller
-passes ``device="cpu"``; on the CPU every kernel wrapper runs its plain
-PyTorch version.
+Entry points (``python -m pipeinfer_tpu_torch.cli.speculative`` and
+``python -m pipeinfer_tpu_torch.cli.main``; ``models.load_model``,
+``runtime.context.InferenceContext``, ``spec.controller.PipeInferController``)
+run on ``cuda`` unless the caller asks for the CPU (``--device cpu``,
+``device="cpu"``); on the CPU every kernel wrapper runs its plain PyTorch
+version.
 """
 
 __version__ = "0.1.0"

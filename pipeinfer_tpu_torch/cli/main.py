@@ -1,0 +1,204 @@
+"""`python -m pipeinfer_tpu_torch.cli.main` — single-model generation
+(ref: examples/main/main.cpp): tokenize -> prefill -> sample/decode loop ->
+detokenize, with the full sampler chain and streaming output.
+
+Port of pipeinfer_tpu.cli.main's non-interactive path. The interactive,
+instruct and ChatML modes, infill, the prompt cache, LoRA adapters, run
+dumps and profiling are not ported yet (ROADMAP.md queue 10): asking for
+one exits with an error that says so.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+import torch
+
+from ..gguf.reader import GGUFReader
+from ..models import load_model
+from ..runtime.context import Batch, InferenceContext
+from ..sampling.samplers import SamplerState
+from ..tokenizer import tokenizer_from_gguf
+from .args import add_gen_args, add_model_args, add_sampling_args, read_prompt, sampling_from_args
+
+_QUEUE_10 = "ROADMAP.md queue 10"
+
+
+def build_context(model_path: str, n_cells: int, cache_dtype: str = "bf16",
+                  need_tokenizer=True, device="cuda"):
+    """(InferenceContext, tokenizer or None) for a GGUF model on `device`."""
+    params, cfg = load_model(model_path, device=device)
+    tok = None
+    with GGUFReader(model_path) as r:
+        try:
+            tok = tokenizer_from_gguf(r)
+        except (KeyError, ValueError):
+            if need_tokenizer:
+                raise SystemExit(f"error: {model_path} has no tokenizer vocabulary")
+    ctx = InferenceContext(
+        params,
+        cfg,
+        n_cells=n_cells,
+        cache_dtype=torch.bfloat16 if cache_dtype == "bf16" else torch.float32,
+        device=device,
+    )
+    return ctx, tok
+
+
+def generate(ctx, tok, sampler: SamplerState, prompt_ids, n_predict, *,
+             ignore_eos=False, stream=None, n_keep=-1, stop_check=None):
+    """Greedy/sampled generation on sequence 0. Returns token ids.
+
+    When the cell array fills, the context SLIDES: the first n_keep
+    positions stay, half of the rest is discarded and the tail shifts down
+    with K re-rotation (ref: main.cpp context swapping n_keep/n_discard +
+    llama_kv_cache_seq_shift; infinite generation via --keep). The JAX
+    package's cached_prefix (prompt-cache reuse) waits with --prompt-cache
+    in ROADMAP.md queue 10."""
+    batch = Batch()
+    for i in range(len(prompt_ids)):
+        batch.add(prompt_ids[i], i, 0, want_logits=(i == len(prompt_ids) - 1))
+    logits = ctx.decode(batch)[-1]
+    out = []
+    n_past = len(prompt_ids)
+    for _ in range(n_predict):
+        token = _sample_step(sampler, logits)
+        out.append(token)
+        if stream:
+            stream(token)
+        if not ignore_eos and token == tok.vocab.eos_id:
+            break
+        if stop_check is not None and stop_check():
+            break  # reverse prompt hit in non-interactive mode (ref: main -r)
+        if ctx.n_free_cells < 1:
+            # context full: slide the window (ref: main.cpp "context
+            # swapping" — keep n_keep, discard half of the rest)
+            keep = len(prompt_ids) if n_keep < 0 else min(n_keep, n_past - 2)
+            n_discard = max(1, (n_past - keep) // 2)
+            ctx.seq_rm(0, keep, keep + n_discard)
+            ctx.seq_shift(0, keep + n_discard, n_past, -n_discard)
+            n_past -= n_discard
+        batch.clear()
+        batch.add(token, n_past, 0)
+        logits = ctx.decode(batch)[0]
+        n_past += 1
+    return out
+
+
+def _sample_step(sampler: SamplerState, logits: np.ndarray) -> int:
+    from ..sampling.samplers import sample
+
+    token = sample(sampler, logits)
+    sampler.accept(token)
+    return token
+
+
+def refuse_unported(args) -> None:
+    """Exit with an error naming the first option asked for that the port
+    does not have yet (rather than silently running something else)."""
+    asked = [
+        ("-i/--interactive", args.interactive), ("--interactive-first", args.interactive_first),
+        ("--instruct", args.instruct), ("--chatml", args.chatml),
+        ("--fim-prefix/--fim-suffix (infill)",
+         args.fim_prefix is not None or args.fim_suffix is not None),
+        ("--prompt-cache", bool(args.prompt_cache)),
+        ("--lora/--lora-scaled", bool(args.lora or args.lora_scaled)),
+        ("--logdir", bool(args.logdir)), ("--profile", bool(args.profile)),
+    ]
+    for name, on in asked:
+        if on:
+            raise SystemExit(f"error: {name} is not ported to pipeinfer_tpu_torch yet "
+                             f"({_QUEUE_10})")
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser("pipeinfer", description=__doc__.split("\n\n")[0])
+    add_model_args(p)
+    add_gen_args(p)
+    add_sampling_args(p)
+    # the JAX package's options, so the same command lines parse; those not
+    # ported yet are refused in refuse_unported
+    p.add_argument("-i", "--interactive", action="store_true",
+                   help="interactive chat (not ported yet)")
+    p.add_argument("--interactive-first", action="store_true",
+                   help="interactive mode, waiting for input immediately (not ported yet)")
+    p.add_argument("-r", "--reverse-prompt", action="append", default=[],
+                   help="stop when this string is generated (repeatable; ref: main -r "
+                   "antiprompt)")
+    p.add_argument("--instruct", action="store_true",
+                   help="Alpaca instruction mode (not ported yet)")
+    p.add_argument("--chatml", action="store_true", help="ChatML mode (not ported yet)")
+    # read only by the interactive loop: accepted for command-line
+    # compatibility, with no effect until that loop is ported
+    compat = "interactive only; accepted for command-line compatibility, no effect"
+    p.add_argument("--in-prefix", default="", help=f"string prepended to user input ({compat})")
+    p.add_argument("--in-suffix", default="", help=f"string appended to user input ({compat})")
+    p.add_argument("--in-prefix-bos", dest="input_prefix_bos", action="store_true",
+                   help=f"prefix user input with BOS ({compat})")
+    p.add_argument("--color", action="store_true", help=f"colorize user input ({compat})")
+    p.add_argument("--fim-prefix", default=None, help="fill-in-middle prefix (not ported yet)")
+    p.add_argument("--fim-suffix", default=None, help="fill-in-middle suffix (not ported yet)")
+    p.add_argument("--prompt-cache", default="", help="session file (not ported yet)")
+    p.add_argument("--lora", action="append", default=[], metavar="GGUF",
+                   help="apply a LoRA adapter at load (not ported yet)")
+    p.add_argument("--lora-scaled", action="append", default=[], nargs=2,
+                   metavar=("GGUF", "S"), help="LoRA adapter with scale S (not ported yet)")
+    p.add_argument("--keep", type=int, default=-1,
+                   help="tokens to keep when the context window slides "
+                   "(-1 = whole prompt; ref: main --keep)")
+    p.add_argument("--logdir", default="", help="YAML run dump directory (not ported yet)")
+    p.add_argument("--profile", default="", metavar="DIR",
+                   help="trace the run to DIR (not ported yet)")
+    args = p.parse_args(argv)
+    refuse_unported(args)
+
+    ctx, tok = build_context(args.model, args.ctx_size, args.cache_dtype, device=args.device)
+    sp = sampling_from_args(args)
+    sampler = SamplerState(params=sp)
+    if args.grammar or args.grammar_file:
+        from ..sampling.grammar import grammar_state_from_gbnf
+
+        text = args.grammar or open(args.grammar_file).read()
+        sampler.grammar = grammar_state_from_gbnf(text, tok)
+
+    ids = tok.encode(read_prompt(args), add_bos=True)
+    if not ids:
+        ids = [tok.vocab.bos_id]
+    for t in ids:
+        sampler.accept(t, apply_grammar=False)
+    if not args.no_display_prompt:
+        sys.stdout.write(tok.decode(ids))
+        sys.stdout.flush()
+
+    from ..tokenizer.stream import StreamDecoder
+
+    sdec = StreamDecoder(tok)
+    gen_tail = [""]
+
+    def stream(token_id):
+        piece = sdec.feed(token_id)
+        gen_tail[0] = (gen_tail[0] + piece)[-256:]
+        sys.stdout.write(piece)
+        sys.stdout.flush()
+
+    def hit_reverse_prompt():
+        t = gen_tail[0]
+        return any(
+            t.find(ap, max(0, len(t) - len(ap) - 2)) != -1
+            for ap in args.reverse_prompt
+        )
+
+    generate(
+        ctx, tok, sampler, ids, args.n_predict,
+        ignore_eos=args.ignore_eos, stream=stream, n_keep=args.keep,
+        stop_check=hit_reverse_prompt if args.reverse_prompt else None,
+    )
+    sys.stdout.write("\n")
+    ctx.print_timings(lambda s: print(s, file=sys.stderr))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -17,10 +17,11 @@ import torch
 
 from ..device import resolve
 from ..gguf.constants import GGMLQuantType
-from ..ops.qmatmul import PORTED_LAYOUTS, QuantTensor
+from ..ops.qmatmul import LAYOUTS, QuantTensor
 from .config import ModelConfig
 
 _PLANES = ("qs", "qh", "scales", "bias")
+_K4_PLANES = ("scales2", "bias2")
 
 
 def _is_quant(x) -> bool:
@@ -29,10 +30,11 @@ def _is_quant(x) -> bool:
 
 def quant_from_numpy(qt, device) -> QuantTensor:
     """One quantized weight: anything with numpy planes qs, qh (or None),
-    scales and bias, and qtype, shape and layout (a QuantTensor of either
-    package after np.asarray of its planes)."""
-    if qt.layout not in PORTED_LAYOUTS:
-        raise ValueError(f"layout {qt.layout!r} is not ported (ported: {PORTED_LAYOUTS})")
+    scales and bias (and, for k4, scales2 and bias2), and qtype, shape and
+    layout (a QuantTensor of either package after np.asarray of its
+    planes)."""
+    if qt.layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {qt.layout!r} (one of {', '.join(LAYOUTS)})")
 
     def put(a):
         return None if a is None else torch.from_numpy(np.array(a)).to(device)
@@ -40,7 +42,7 @@ def quant_from_numpy(qt, device) -> QuantTensor:
     return QuantTensor(
         qs=put(qt.qs), qh=put(qt.qh), scales=put(qt.scales), bias=put(qt.bias),
         qtype=GGMLQuantType(int(qt.qtype)), shape=tuple(int(s) for s in qt.shape),
-        layout=qt.layout,
+        layout=qt.layout, **{f: put(getattr(qt, f, None)) for f in _K4_PLANES},
     )
 
 

@@ -19,7 +19,7 @@ import torch
 from ..device import resolve
 from ..gguf.constants import GGMLQuantType
 from ..gguf.reader import GGUFReader
-from ..ops.qmatmul import PORTED_LAYOUTS, QuantTensor, concat_qt, to_device
+from ..ops.qmatmul import QuantTensor, concat_qt, to_device
 from ..quant import pack
 from . import llama
 from .config import ModelConfig, config_from_gguf
@@ -34,23 +34,19 @@ _DENSE_TYPES = (
 
 
 def matmul_layout(qtype: GGMLQuantType | None = None, device="cuda") -> str:
-    """Device layout for quantized matmul weights: "i4g" for 4-bit formats
-    (nibble-packed, ~0.56 B/param, the i4g kernel) and "i8g" for wider ones
-    (s8 requantized per (512, column), the i8g kernel).
-    PIPEINFER_WEIGHT_LAYOUT overrides, as in the JAX package; of its
-    layouts only i4g and i8g are ported so far.
-
-    Where the JAX package asks whether it runs on a TPU (and picks the
-    exact "k_major" layout elsewhere), the port asks which device the
-    weights go to. k_major waits in ROADMAP.md, so a CPU load takes the
-    kernels' layouts too and runs their plain PyTorch versions."""
+    """Device layout for quantized matmul weights, as the JAX package picks
+    it. PIPEINFER_WEIGHT_LAYOUT (k_major, i8, k4, i8g or i4g) overrides.
+    Otherwise: on CUDA, where the JAX package would ask for a TPU, "i4g"
+    for 4-bit formats (nibble-packed, ~0.56 B/param, the i4g kernel) and
+    "i8g" for wider ones (s8 requantized per (512, column)); elsewhere (the
+    CPU) the exact, minimum-memory "k_major" planes. i8 and k4 are exact
+    too and stay selectable; fidelity-critical runs can take any of the
+    three exact layouts on the card."""
     env = os.environ.get("PIPEINFER_WEIGHT_LAYOUT", "")
-    if env in ("i8", "k_major", "k4"):
-        raise ValueError(f"PIPEINFER_WEIGHT_LAYOUT={env} is not ported yet "
-                         f"(ported: {', '.join(PORTED_LAYOUTS)})")
-    if env in ("i4g", "i8g"):
+    if env in ("i8", "k_major", "k4", "i8g", "i4g"):
         return env
-    del device  # both device types take the kernels' layouts (see above)
+    if torch.device(device).type != "cuda":
+        return "k_major"
     if qtype is not None and pack.FORMAT_INFO.get(qtype, (0, 0))[0] == 4:
         return "i4g"
     return "i8g"

@@ -95,10 +95,9 @@ def cell_attention(
     if alibi is not None:
         slopes = alibi.to(device=q.device, dtype=torch.float32).contiguous()
     out = torch.empty(t, h, d, dtype=torch.float32, device=q.device)
-    cell_attention.launches += 1
     cuda_build.launch("cell_attention", "pi_cell_attention", q, k_cache, v_cache, cell_pos,
                       cell_seq, tok_pos, tok_seq, valid, slopes, out, t, h, kvh, c_full, d,
-                      n_words, layer, c, float(scale))
+                      n_words, layer, c, float(scale), count=cell_attention)
     return out
 
 

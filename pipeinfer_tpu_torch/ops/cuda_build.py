@@ -23,7 +23,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-KERNELS = ("qmatmul_i4g", "qmatmul_i8g", "cell_attention")
+KERNELS = ("qmatmul_i4g", "qmatmul_i8g", "cell_attention", "qmatmul_kmajor", "qmatmul_i8",
+           "qmatmul_k4")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -120,14 +121,20 @@ def _ctype(arg):
     return ctypes.c_float if isinstance(arg, float) else ctypes.c_int
 
 
-def launch(name: str, symbol: str, *args) -> None:
+def _stream() -> int:
+    import torch
+
+    return torch.cuda.current_stream().cuda_stream
+
+
+def launch(name: str, symbol: str, *args, count=None) -> None:
     """Call C entry point `symbol` of kernel library `name`, which launches
     its kernel on PyTorch's current CUDA stream (passed last) and returns
     cudaGetLastError(). Tensors (or None) go as device pointers, ints as
     int and floats as float. Raises on a non-zero error: a launch the
-    CUDA runtime refuses never runs, and no later synchronize reports it."""
-    import torch
-
+    CUDA runtime refuses never runs, and no later synchronize reports it.
+    `count` (the kernel's wrapper) gains one launch only once the launch
+    has gone through."""
     key = f"{name}:{symbol}"
     fn = _fns.get(key)
     if fn is None:
@@ -136,6 +143,8 @@ def launch(name: str, symbol: str, *args) -> None:
         fn.restype = ctypes.c_int
         _fns[key] = fn
     vals = [ctypes.c_void_p(a.data_ptr()) if hasattr(a, "data_ptr") else a for a in args]
-    err = fn(*vals, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    err = fn(*vals, ctypes.c_void_p(_stream()))
     if err != 0:
         raise RuntimeError(f"CUDA kernel {symbol} failed to launch: cudaError {err}")
+    if count is not None:
+        count.launches += 1

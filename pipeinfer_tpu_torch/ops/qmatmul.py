@@ -1,8 +1,7 @@
-"""Quantized matmul: device planes, activation quantization and the i4g /
-i8g kernels.
+"""Quantized matmul: device planes, activation quantization and the
+hand-written kernels of every layout.
 
-Torch counterpart of pipeinfer_tpu.ops.qmatmul for the layouts on the main
-path:
+Torch counterpart of pipeinfer_tpu.ops.qmatmul. Layouts (QuantTensor.layout):
 
 - "i4g": weights requantized at load to 4 bits on a per-(128-row half-slab,
   column) affine grid (w ~ wmin + step * u, u in [0, 15]), nibble-packed per
@@ -10,16 +9,28 @@ path:
   (hi nibble). qs u8 [Kp/2, N], step and wmin f32 [Kp/128, N].
 - "i8g": weights requantized to s8 with an absmax scale per (512-row slab,
   column). qs s8 [Kp, N], sw f32 [Kp/512, N].
+- "k_major": the GGUF block format's own bit-packed planes, transposed to
+  [K-ish, N]: exact dequantization (w = s * q - b per group of G rows)
+  inside the kernel. qs u8 [K*b/8, N] (s8 [K, N] for Q8_0), qh u8 (the
+  high bits of 3/5/6-bit formats), scales and bias f32 [K/G, N].
+- "i8": the integer quants widened to s8 [K, N], scales and bias f32
+  [K/G, N]; exact.
+- "k4" (4-bit formats with K % 256 == 0): the packed nibble plane
+  transposed, qs u8 [r2, N] (K/2 rows padded to 256), whose lo and hi
+  nibbles act as two K-halves; per-plane scales/bias (lo: scales, bias;
+  hi: scales2, bias2) f32 [r2/32, N]; exact.
 - "n_major": the raw packed planes kept [N, K-ish] for embedding row
   gathers (``dequant_rows``).
 
-Activations are quantized to s8 in plain torch outside the kernels, with
-ONE absmax scale per slab shared across all M rows (a per-row scale would
-change the verify-batch numerics against the reference). The kernels
-(``csrc/qmatmul_i4g.cu``, ``csrc/qmatmul_i8g.cu``) then run exact s8 x s8
--> s32 dot products per slab and scale each slab's partial sums on the
-output side. On a CPU tensor each kernel wrapper runs its plain PyTorch
-version instead; on a CUDA tensor it launches the kernel or raises.
+i4g and i8g quantize activations to s8 in plain torch outside the kernels,
+with ONE absmax scale per slab shared across all M rows (a per-row scale
+would change the verify-batch numerics against the reference); their
+kernels run exact s8 x s8 -> s32 dots per slab and scale each slab's
+partial sums on the output side. The exact layouts (k_major, i8, k4) take
+bf16 activations and, as the TPU kernels do, round each weight to bf16
+after the f32 dequantization and accumulate the products in f32. On a CPU
+tensor each kernel wrapper runs its plain PyTorch version instead; on a
+CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -35,14 +46,17 @@ from . import cuda_build
 I8G_SLAB = 512  # K rows sharing one requant scale
 I4G_SLAB = 256  # K rows per nibble-packed slab (two 128-row half-slabs)
 I4G_HALF = I4G_SLAB // 2
-PORTED_LAYOUTS = ("i4g", "i8g", "n_major")
+K4_GROUP = 32  # rows of a k4 plane sharing one scale row
+LAYOUTS = ("k_major", "n_major", "i8", "k4", "i8g", "i4g")
 
 
 @dataclasses.dataclass
 class QuantTensor:
     """Device-side quantized [N, K] weight (see the module docstring for
     the layouts). For i4g, ``scales`` holds step and ``bias`` holds wmin;
-    for i8g, ``scales`` holds sw and ``bias`` is empty."""
+    for i8g, ``scales`` holds sw and ``bias`` is empty; ``scales2`` and
+    ``bias2`` hold the hi nibble plane's scale and bias for k4 and are None
+    for every other layout."""
 
     qs: torch.Tensor
     qh: torch.Tensor | None
@@ -51,6 +65,8 @@ class QuantTensor:
     qtype: GGMLQuantType
     shape: tuple[int, int]  # (N, K)
     layout: str = "i4g"
+    scales2: torch.Tensor | None = None
+    bias2: torch.Tensor | None = None
 
     @property
     def bits(self) -> int:
@@ -61,7 +77,7 @@ class QuantTensor:
         return FORMAT_INFO[self.qtype][1]
 
     def nbytes(self) -> int:
-        planes = (self.qs, self.qh, self.scales, self.bias)
+        planes = (self.qs, self.qh, self.scales, self.bias, self.scales2, self.bias2)
         return sum(p.numel() * p.element_size() for p in planes if p is not None)
 
 
@@ -87,6 +103,39 @@ def _unpack_quants_N(qs: torch.Tensor, qh: torch.Tensor | None, *, bits: int, k:
         h = qh.reshape(r, k // pg, pg // 8).to(torch.int32)
         q = q | (torch.cat([(h >> i) & 1 for i in range(8)], dim=2) << 2)
     return q.reshape(r, k)
+
+
+def _unpack_quants_T(qs: torch.Tensor, qh: torch.Tensor | None, *, bits: int, k: int):
+    """K-major packed planes [K-ish, N] -> integer quants W^T [K, N] int32.
+    Within a 256-row pack group, 4/5/6-bit nibble row j holds elements j
+    (lo) and j + 128 (hi); 2/3-bit row j holds j + 64 i at bits 2i; the
+    5/3-bit qh row j gives bit i to element j + 32 i, the 6-bit qh row j
+    its 2-bit field i to element j + 64 i."""
+    n = qs.shape[1]
+    pg = min(PACK_GROUP, k)
+    if bits == 8:
+        return qs.to(torch.int32)
+    if bits in (4, 5, 6):
+        b = qs.reshape(k // pg, pg // 2, n).to(torch.int32)
+        q = torch.cat([b & 0xF, b >> 4], dim=1)
+    else:
+        b = qs.reshape(k // pg, pg // 4, n).to(torch.int32)
+        q = torch.cat([(b >> (2 * i)) & 3 for i in range(4)], dim=1)
+    if bits == 5:
+        h = qh.reshape(k // pg, pg // 8, n).to(torch.int32)
+        q = q | (torch.cat([(h >> i) & 1 for i in range(8)], dim=1) << 4)
+    elif bits == 6:
+        h = qh.reshape(k // pg, pg // 4, n).to(torch.int32)
+        q = q | (torch.cat([(h >> (2 * i)) & 3 for i in range(4)], dim=1) << 4)
+    elif bits == 3:
+        h = qh.reshape(k // pg, pg // 8, n).to(torch.int32)
+        q = q | (torch.cat([(h >> i) & 1 for i in range(8)], dim=1) << 2)
+    return q.reshape(k, n)
+
+
+def _expand(a: torch.Tensor, group: int, rows: int) -> torch.Tensor:
+    """Repeat each row of a per-group plane `group` times; first `rows`."""
+    return torch.repeat_interleave(a, group, dim=0)[:rows]
 
 
 def _dequant_N(qs, qh, scales, bias, *, bits: int, k: int, group: int) -> torch.Tensor:
@@ -142,11 +191,40 @@ def _i4g_planes(qs, qh, scales, bias, *, bits: int, k: int, group: int):
     return wp.reshape(kp // 2, n).contiguous(), step.contiguous(), wmin.contiguous()
 
 
+def _i8_planes(qs, qh, scales, bias, *, bits: int, k: int):
+    """Raw N-major planes -> (s8 W^T [K, N], scales^T, bias^T): the integer
+    quants widened to int8, as the JAX package's _i8_planes_jit."""
+    q = _unpack_quants_N(qs, qh, bits=bits, k=k).to(torch.int8)
+    return q.T.contiguous(), scales.T.contiguous(), bias.T.contiguous()
+
+
+def _k4_planes(qs, scales, bias):
+    """Raw 4-bit N-major planes -> (qs u8 [r2, N], s_lo, s_hi, b_lo, b_hi
+    f32 [r2/32, N]), as the JAX package's _k4_planes_jit: byte row p of
+    the transpose holds element (p//128)*256 + p%128 (lo nibble) and that
+    + 128 (hi); the [N, K/32] scale and bias planes split into per-plane
+    tensors in plane-row order (lo row p uses scale row p//32). The byte
+    plane is zero-padded to a multiple of 256 rows, the per-plane scales
+    to a multiple of 8."""
+    n = qs.shape[0]
+    qs_t = _pad_rows(qs.T, 256).contiguous()
+
+    def split(a):
+        a_t = a.T.reshape(-1, 8, n)  # [K/256, 8, N]: rows 0-3 lo, 4-7 hi
+        lo = _pad_rows(a_t[:, :4].reshape(-1, n), 8).contiguous()
+        hi = _pad_rows(a_t[:, 4:].reshape(-1, n), 8).contiguous()
+        return lo, hi
+
+    s_lo, s_hi = split(scales)
+    b_lo, b_hi = split(bias)
+    return qs_t, s_lo, s_hi, b_lo, b_hi
+
+
 def to_device(pw: PackedWeight, layout: str = "i4g", device="cuda") -> QuantTensor:
-    """Upload a host PackedWeight in the requested plane layout. The i4g
-    and i8g planes are built on `device` from the raw packed planes (a
-    4-bit layout request for a wider format becomes i8g, as in the
-    reference)."""
+    """Upload a host PackedWeight in the requested plane layout. Every
+    layout is built on `device` from the raw packed planes. As in the
+    reference, a 4-bit layout asked of a wider format falls back: i4g
+    becomes i8g, and k4 (4-bit and K % 256 only) becomes i8."""
     device = torch.device(device)
 
     def put(a):
@@ -154,18 +232,28 @@ def to_device(pw: PackedWeight, layout: str = "i4g", device="cuda") -> QuantTens
 
     if layout == "i4g" and pw.bits != 4:
         layout = "i8g"
+    if layout == "k4" and (pw.bits != 4 or pw.shape[1] % PACK_GROUP):
+        layout = "i8"
+    raw = (put(pw.qs), put(pw.qh), put(pw.scales), put(pw.bias))
     if layout in ("i4g", "i8g"):
-        raw = (put(pw.qs), put(pw.qh), put(pw.scales), put(pw.bias))
         kw = dict(bits=pw.bits, k=pw.shape[1], group=FORMAT_INFO[pw.qtype][1])
         if layout == "i4g":
             wp, step, wmin = _i4g_planes(*raw, **kw)
             return QuantTensor(wp, None, step, wmin, pw.qtype, pw.shape, "i4g")
         wq, sw = _i8g_planes(*raw, **kw)
         return QuantTensor(wq, None, sw, sw[:0], pw.qtype, pw.shape, "i8g")
+    if layout == "k4":
+        qs_t, s_lo, s_hi, b_lo, b_hi = _k4_planes(raw[0], raw[2], raw[3])
+        return QuantTensor(qs_t, None, s_lo, b_lo, pw.qtype, pw.shape, "k4", s_hi, b_hi)
+    if layout == "i8":
+        qs8, s_t, b_t = _i8_planes(*raw, bits=pw.bits, k=pw.shape[1])
+        return QuantTensor(qs8, None, s_t, b_t, pw.qtype, pw.shape, "i8")
+    if layout == "k_major":
+        qs_t, qh_t, s_t, b_t = (None if a is None else a.T.contiguous() for a in raw)
+        return QuantTensor(qs_t, qh_t, s_t, b_t, pw.qtype, pw.shape, "k_major")
     if layout == "n_major":
-        return QuantTensor(put(pw.qs), put(pw.qh), put(pw.scales), put(pw.bias),
-                           pw.qtype, pw.shape, "n_major")
-    raise ValueError(f"layout {layout!r} is not ported (i4g, i8g and n_major are)")
+        return QuantTensor(*raw, pw.qtype, pw.shape, "n_major")
+    raise ValueError(f"unknown layout {layout!r} (one of {', '.join(LAYOUTS)})")
 
 
 def dequant_T(qt: QuantTensor, dtype=torch.float32) -> torch.Tensor:
@@ -173,6 +261,19 @@ def dequant_T(qt: QuantTensor, dtype=torch.float32) -> torch.Tensor:
     n, k = qt.shape
     if qt.layout == "n_major":
         return dequant(qt, dtype).T
+    if qt.layout == "k_major":
+        q = _unpack_quants_T(qt.qs, qt.qh, bits=qt.bits, k=k).float()
+        return (_expand(qt.scales, qt.group, k) * q - _expand(qt.bias, qt.group, k)).to(dtype)
+    if qt.layout == "i8":
+        q = qt.qs.float()
+        return (_expand(qt.scales, qt.group, k) * q - _expand(qt.bias, qt.group, k)).to(dtype)
+    if qt.layout == "k4":
+        h = k // 2
+        wi = qt.qs[:h].to(torch.int32)
+        w_lo = _expand(qt.scales, K4_GROUP, h) * (wi & 15).float() - _expand(qt.bias, K4_GROUP, h)
+        w_hi = _expand(qt.scales2, K4_GROUP, h) * (wi >> 4).float() - _expand(qt.bias2, K4_GROUP, h)
+        w4 = torch.cat([w_lo.reshape(k // 256, 128, n), w_hi.reshape(k // 256, 128, n)], dim=1)
+        return w4.reshape(k, n).to(dtype)
     if qt.layout == "i4g":
         kp = qt.qs.shape[0] * 2
         v = qt.qs.to(torch.int32)
@@ -185,7 +286,7 @@ def dequant_T(qt: QuantTensor, dtype=torch.float32) -> torch.Tensor:
     if qt.layout == "i8g":
         w = qt.qs.float() * torch.repeat_interleave(qt.scales, I8G_SLAB, dim=0)
         return w[:k].to(dtype)
-    raise ValueError(f"layout {qt.layout!r} is not ported")
+    raise ValueError(f"unknown layout {qt.layout!r}")
 
 
 def dequant(qt: QuantTensor, dtype=torch.float32) -> torch.Tensor:
@@ -212,7 +313,9 @@ def concat_qt(qts: list[QuantTensor]) -> QuantTensor | None:
     """Concatenate QuantTensors along their output (N) dim: one fused
     tensor for projections that share an input (wq+wk+wv, gate+up), so a
     step launches one kernel instead of several. None when the tensors
-    cannot fuse (mixed formats, as Q4_K_M's Q6_K w_v, or mixed layouts)."""
+    cannot fuse (mixed formats, as Q4_K_M's Q6_K w_v, or mixed layouts).
+    Every matmul layout keeps N as the last axis of every plane (qh and
+    k4's second planes included), so each plane concatenates along it."""
     first = qts[0]
     if any(q.qtype != first.qtype or q.layout != first.layout
            or q.shape[1] != first.shape[1] for q in qts[1:]):
@@ -227,7 +330,7 @@ def concat_qt(qts: list[QuantTensor]) -> QuantTensor | None:
     return QuantTensor(
         qs=cat("qs"), qh=cat("qh"), scales=cat("scales"), bias=cat("bias"),
         qtype=first.qtype, shape=(sum(q.shape[0] for q in qts), first.shape[1]),
-        layout=first.layout,
+        layout=first.layout, scales2=cat("scales2"), bias2=cat("bias2"),
     )
 
 
@@ -305,8 +408,8 @@ def i4g_matmul(xq, xsum, sx, qs, step, wmin) -> torch.Tensor:
                          f"sx {tuple(sx.shape)} qs {tuple(qs.shape)} step {tuple(step.shape)} "
                          f"wmin {tuple(wmin.shape)} do not fit")
     out = torch.empty(m, n, dtype=torch.float32, device=xq.device)
-    i4g_matmul.launches += 1
-    cuda_build.launch("qmatmul_i4g", "pi_i4g_matmul", xq, xsum, sx, qs, step, wmin, out, m, n, kp)
+    cuda_build.launch("qmatmul_i4g", "pi_i4g_matmul", xq, xsum, sx, qs, step, wmin, out, m, n, kp,
+                      count=i4g_matmul)
     return out
 
 
@@ -363,8 +466,8 @@ def i8g_matmul(xq, sx, qs, sw) -> torch.Tensor:
         raise ValueError(f"i8g_matmul: shapes xq {tuple(xq.shape)} sx {tuple(sx.shape)} "
                          f"qs {tuple(qs.shape)} sw {tuple(sw.shape)} do not fit")
     out = torch.empty(m, n, dtype=torch.float32, device=xq.device)
-    i8g_matmul.launches += 1
-    cuda_build.launch("qmatmul_i8g", "pi_i8g_matmul", xq, sx, qs, sw, out, m, n, kp)
+    cuda_build.launch("qmatmul_i8g", "pi_i8g_matmul", xq, sx, qs, sw, out, m, n, kp,
+                      count=i8g_matmul)
     return out
 
 
@@ -378,14 +481,240 @@ def qmm_i8g(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     return i8g_matmul(xq, sx, qt.qs, qt.scales)
 
 
+# ---------------------------------------------------------------------------
+# The exact layouts (k_major, i8, k4): bf16 activations, weights dequantized
+# in f32 and rounded to bf16 inside the kernel, products accumulated in f32
+# ---------------------------------------------------------------------------
+#
+# All three kernels share the frame of csrc/qmatmul_i4g.cu: one block per
+# 32-column tile and up to 8 rows of x; its 256 threads split K into
+# 16-row chunks dealt to 32 thread groups, so a 4096-wide N still gets 128
+# blocks; each thread reads 4 adjacent columns with one 32-bit load per
+# plane row and transposes 4 rows x 4 columns in registers (__byte_perm);
+# the 32 groups' partial sums meet in shared memory (no atomics). Each
+# weight is dequantized exactly as the TPU kernel does it: w = s * q (- b)
+# with one f32 rounding per operation (no fused multiply-add), rounded to
+# bf16 (round to nearest even); the product with the bf16 activation is
+# exact in f32 and accumulates in f32. Bound on the H100: bytes, as for
+# i4g (decode M uses each weight M times, far under the ~295 operations
+# per byte where the tensor cores would bind).
+
+
+def _aligned(name: str, x: torch.Tensor, *planes) -> None:
+    """The kernels read x 8 bytes and the planes 4 bytes at a time."""
+    if x.data_ptr() % 8 or any(p is not None and p.data_ptr() % 4 for p in planes):
+        raise ValueError(f"{name}: x must be 8-byte and every plane 4-byte aligned")
+
+
+def _group_sums(x: torch.Tensor, group: int) -> torch.Tensor:
+    """f32 sums of x [M, K] over each group of `group` rows -> [M, K/group]
+    (the bias term's left factor, taken from f32 x as the reference does)."""
+    m, k = x.shape
+    return x.float().reshape(m, k // group, group).sum(dim=2)
+
+
+# k_major: replaces pipeinfer_tpu/ops/qmatmul.py::_make_kernel (wrapper
+# _qmm_pallas). Bound: bytes, the packed planes (0.5 B/weight plus 8 B per
+# 32 weights of scale and bias for Q4_K; 1.25 B/weight for Q6_K). Design
+# (csrc/qmatmul_kmajor.cu): a chunk is 16 rows of the qs plane inside one
+# 256-row pack group, which hold 16 rows of each of the format's planes
+# (lo/hi nibbles, or the four 2-bit fields) and share one scale row per
+# plane; the qh rows of those elements are read and transposed alongside.
+# The per-format element mapping is a template on the bit width.
+
+_QS_ROWS = {8: 1, 6: 2, 5: 2, 4: 2, 3: 4, 2: 4}  # elements per qs row
+_QH_DIV = {6: 4, 5: 8, 3: 8}  # K / qh rows
+
+
+def _kmajor_plain(x, qs, qh, scales, bias, bits: int, group: int):
+    """Plain version of the k_major kernel: W^T = bf16(s * q - b), then
+    x @ W^T in f32."""
+    k = x.shape[1]
+    w = _expand(scales, group, k) * _unpack_quants_T(qs, qh, bits=bits, k=k).float()
+    if bias is not None:
+        w = w - _expand(bias, group, k)
+    return x.float() @ w.to(torch.bfloat16).float()
+
+
+def kmajor_matmul(x, qs, qh, scales, bias, *, bits: int, group: int) -> torch.Tensor:
+    """out f32 [M, N] = x @ bf16(s * q - b) with q unpacked from k_major
+    planes. x bf16 [M, K], K % 256 == 0; qs u8 [K * b / 8, N] (s8 [K, N]
+    for 8 bits); qh u8 [K/8, N] (3 and 5 bits), [K/4, N] (6 bits) or None;
+    scales f32 [K/G, N]; bias f32 [K/G, N], or None for Q8_0 (no bias)."""
+    if not x.is_cuda:
+        return _kmajor_plain(x, qs, qh, scales, bias, bits, group)
+    planes = dict(x=(x, torch.bfloat16), qs=(qs, torch.int8 if bits == 8 else torch.uint8),
+                  scales=(scales, torch.float32))
+    if qh is not None:
+        planes["qh"] = (qh, torch.uint8)
+    if bias is not None:
+        planes["bias"] = (bias, torch.float32)
+    cuda_build.check_tensors("kmajor_matmul", **planes)
+    m, k = x.shape
+    n = qs.shape[1]
+    qh_rows = k // _QH_DIV[bits] if bits in _QH_DIV else None
+    if (bits not in _QS_ROWS or group not in (16, 32) or k % PACK_GROUP or n % 4
+            or qs.shape[0] != k // _QS_ROWS[bits]
+            or (None if qh is None else tuple(qh.shape)) != (None if qh_rows is None
+                                                             else (qh_rows, n))
+            or scales.shape != (k // group, n)
+            or (bias is not None and bias.shape != scales.shape)
+            or (bias is None and bits != 8)):
+        raise ValueError(f"kmajor_matmul: shapes x {tuple(x.shape)} qs {tuple(qs.shape)} "
+                         f"qh {None if qh is None else tuple(qh.shape)} scales "
+                         f"{tuple(scales.shape)} (bits {bits}, group {group}) do not fit")
+    _aligned("kmajor_matmul", x, qs, qh, scales, bias)
+    out = torch.empty(m, n, dtype=torch.float32, device=x.device)
+    cuda_build.launch("qmatmul_kmajor", "pi_kmajor_matmul", x, qs, qh, scales, bias, out,
+                      m, n, k, bits, group, count=kmajor_matmul)
+    return out
+
+
+kmajor_matmul.launches = 0
+
+
+def qmm_kmajor(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
+    """y = x @ W^T for the k_major layout (Q8_0 has no bias term)."""
+    bias = None if qt.qtype == GGMLQuantType.Q8_0 else qt.bias
+    return kmajor_matmul(x.to(torch.bfloat16).contiguous(), qt.qs, qt.qh, qt.scales, bias,
+                         bits=qt.bits, group=qt.group)
+
+
+# i8: replaces pipeinfer_tpu/ops/qmatmul.py::_i8_kernel (wrapper
+# _qmm_i8_pallas). Bound: bytes, 1 B/weight plus the scale and bias planes
+# (8 B per group of 32 or 16). The TPU kernel leaves the bias term
+# -xg @ B to an XLA dot outside; here each chunk that starts a group
+# subtracts xg[m, g] * b[g, n] into its partial sums (the same f32 term,
+# summed in another order), so the bias plane is read once, in the kernel.
+
+
+def _i8_plain(x, xg, qs, scales, bias, group: int):
+    """Plain version of the i8 kernel: x @ bf16(s * q) - xg @ B."""
+    out = x.float() @ (_expand(scales, group, qs.shape[0]) * qs.float()).to(torch.bfloat16).float()
+    if bias is not None:
+        out = out - xg @ bias
+    return out
+
+
+def i8_matmul(x, xg, qs, scales, bias, *, group: int) -> torch.Tensor:
+    """out f32 [M, N] = x @ bf16(s * q) - xg @ B. x bf16 [M, K]; qs s8
+    [K, N]; scales f32 [K/G, N]; bias f32 [K/G, N] and xg f32 [M, K/G]
+    (group sums of f32 x), both None for Q8_0."""
+    if not x.is_cuda:
+        return _i8_plain(x, xg, qs, scales, bias, group)
+    m, k = x.shape
+    n = qs.shape[1]
+    if (group not in (16, 32) or k % group or n % 4 or qs.shape[0] != k
+            or scales.shape != (k // group, n) or (bias is None) != (xg is None)
+            or (bias is not None and (bias.shape != scales.shape
+                                      or xg.shape != (m, k // group)))):
+        raise ValueError(f"i8_matmul: shapes x {tuple(x.shape)} qs {tuple(qs.shape)} "
+                         f"scales {tuple(scales.shape)} (group {group}) do not fit")
+    planes = dict(x=(x, torch.bfloat16), qs=(qs, torch.int8), scales=(scales, torch.float32))
+    if bias is not None:
+        planes.update(xg=(xg, torch.float32), bias=(bias, torch.float32))
+    cuda_build.check_tensors("i8_matmul", **planes)
+    _aligned("i8_matmul", x, qs, scales, bias)
+    out = torch.empty(m, n, dtype=torch.float32, device=x.device)
+    cuda_build.launch("qmatmul_i8", "pi_i8_matmul", x, xg, qs, scales, bias, out, m, n, k, group,
+                      count=i8_matmul)
+    return out
+
+
+i8_matmul.launches = 0
+
+
+def qmm_i8(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
+    """y = x @ W^T for the i8 layout (Q8_0 has no bias term)."""
+    has_bias = qt.qtype != GGMLQuantType.Q8_0
+    return i8_matmul(x.to(torch.bfloat16).contiguous(),
+                     _group_sums(x, qt.group) if has_bias else None, qt.qs, qt.scales,
+                     qt.bias if has_bias else None, group=qt.group)
+
+
+# k4: replaces pipeinfer_tpu/ops/qmatmul.py::_k4_kernel (wrapper
+# _qmm_k4_pallas). Bound: bytes, 0.5 B/weight plus 8 B per 32 weights of
+# per-plane scale and bias. Design (csrc/qmatmul_k4.cu): a chunk is 16
+# rows of the byte plane, whose lo and hi nibbles are 16 elements each of
+# two K-halves of a 256-row group; the kernel reads x at those natural
+# positions, so x is never re-ordered into plane order. The bias term is
+# subtracted per plane group as in the i8 kernel.
+
+
+def _k4_plain(x, xg, qs, s_lo, s_hi, b_lo, b_hi):
+    """Plain version of the k4 kernel: x re-ordered into plane order (xl,
+    xh), xl @ bf16(s_lo * lo) + xh @ bf16(s_hi * hi) - (xgl @ B_lo +
+    xgh @ B_hi)."""
+    m, k = x.shape
+    h = k // 2
+    x4 = x.float().reshape(m, k // 256, 2, 128)
+    xl, xh = x4[:, :, 0].reshape(m, h), x4[:, :, 1].reshape(m, h)
+    wi = qs[:h].to(torch.int32)
+    wl = (_expand(s_lo, K4_GROUP, h) * (wi & 15).float()).to(torch.bfloat16).float()
+    wh = (_expand(s_hi, K4_GROUP, h) * (wi >> 4).float()).to(torch.bfloat16).float()
+    xg4 = xg.reshape(m, k // 256, 8)
+    xgl, xgh = xg4[:, :, :4].reshape(m, k // 64), xg4[:, :, 4:].reshape(m, k // 64)
+    return (xl @ wl + xh @ wh) - (xgl @ b_lo[: k // 64] + xgh @ b_hi[: k // 64])
+
+
+def k4_matmul(x, xg, qs, s_lo, s_hi, b_lo, b_hi) -> torch.Tensor:
+    """out f32 [M, N] for the k4 layout (see _k4_plain). x bf16 [M, K],
+    K % 256 == 0; xg f32 [M, K/32] (group sums of f32 x, natural order);
+    qs u8 [r2, N], r2 >= K/2 and r2 % 256 == 0; s_lo, s_hi, b_lo, b_hi f32
+    [r2/32, N]."""
+    if not x.is_cuda:
+        return _k4_plain(x, xg, qs, s_lo, s_hi, b_lo, b_hi)
+    cuda_build.check_tensors("k4_matmul", x=(x, torch.bfloat16), xg=(xg, torch.float32),
+                             qs=(qs, torch.uint8), s_lo=(s_lo, torch.float32),
+                             s_hi=(s_hi, torch.float32), b_lo=(b_lo, torch.float32),
+                             b_hi=(b_hi, torch.float32))
+    m, k = x.shape
+    r2, n = qs.shape
+    srows = (r2 // K4_GROUP, n)
+    if (k % PACK_GROUP or r2 % 256 or r2 < k // 2 or n % 4 or xg.shape != (m, k // K4_GROUP)
+            or any(p.shape != srows for p in (s_lo, s_hi, b_lo, b_hi))):
+        raise ValueError(f"k4_matmul: shapes x {tuple(x.shape)} xg {tuple(xg.shape)} qs "
+                         f"{tuple(qs.shape)} s_lo {tuple(s_lo.shape)} do not fit")
+    _aligned("k4_matmul", x, qs, s_lo, s_hi, b_lo, b_hi)
+    out = torch.empty(m, n, dtype=torch.float32, device=x.device)
+    cuda_build.launch("qmatmul_k4", "pi_k4_matmul", x, xg, qs, s_lo, s_hi, b_lo, b_hi, out,
+                      m, n, k, count=k4_matmul)
+    return out
+
+
+k4_matmul.launches = 0
+
+
+def qmm_k4(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
+    """y = x @ W^T for the k4 layout."""
+    return k4_matmul(x.to(torch.bfloat16).contiguous(), _group_sums(x, K4_GROUP), qt.qs,
+                     qt.scales, qt.scales2, qt.bias, qt.bias2)
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+# ---------------------------------------------------------------------------
+
+_QMM = {"i4g": qmm_i4g, "i8g": qmm_i8g, "k_major": qmm_kmajor, "i8": qmm_i8, "k4": qmm_k4}
+
+
 def kernel_supported(qt: QuantTensor) -> bool:
-    """Whether a kernel takes this weight: the i4g and i8g layouts with N a
-    multiple of 4 (one 32-bit load covers 4 columns). The JAX package's
-    test (_pallas_supported) asks for N % 128; the port's kernels mask the
-    ragged edge of their 32-column tiles, so only the word alignment is
-    left. Anything else, such as a 32003-token vocabulary head, takes the
-    dense fallback, as it does in the JAX package."""
-    return qt.layout in ("i4g", "i8g") and qt.shape[0] % 4 == 0
+    """Whether a kernel takes this weight. Every kernel reads 4 columns
+    with one 32-bit load, so N must be a multiple of 4; k_major also needs
+    whole 256-row pack groups (K % 256), i8 whole scale groups (k4's K %
+    256 holds by construction). The JAX package's test
+    (_pallas_supported) also asks for N % 128; the port's kernels mask the
+    ragged edge of their 32-column tiles. Anything else, such as a
+    32003-token vocabulary head, takes the dense fallback, as it does in
+    the JAX package."""
+    n, k = qt.shape
+    if qt.layout not in _QMM or n % 4:
+        return False
+    if qt.layout == "k_major":
+        return k % PACK_GROUP == 0
+    if qt.layout == "i8":
+        return k % qt.group == 0
+    return True
 
 
 def qmatmul(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
@@ -396,6 +725,6 @@ def qmatmul(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     The rest take the dense fallback of the JAX package: dequantize to
     bf16 and multiply with f32 accumulation."""
     if kernel_supported(qt):
-        return qmm_i4g(x, qt) if qt.layout == "i4g" else qmm_i8g(x, qt)
+        return _QMM[qt.layout](x, qt)
     w_t = dequant_T(qt, torch.bfloat16).float()
     return x.to(torch.bfloat16).float() @ w_t

@@ -1,3 +1,3 @@
-"""Sampling chain (copied from pipeinfer_tpu.sampling.samplers)."""
+"""Sampling chain and GBNF grammars (copied from pipeinfer_tpu.sampling)."""
 
 from .samplers import SamplingParams, SamplerState, sample, sample_with_candidates  # noqa: F401

@@ -17,7 +17,7 @@ import dataclasses
 
 import numpy as np
 
-from ..runtime.context import Batch, InferenceContext
+from ..runtime.context import Batch, CacheFull, InferenceContext
 from ..sampling.samplers import SamplerState, sample_with_candidates
 from .params import SpecParams
 
@@ -129,8 +129,11 @@ def draft_tree(
                 root_token, dft_base, seq_offset, sp.n_draft,
                 samp=samp, seed=seed,
             )
-        except RuntimeError:
-            return 0, None  # cache full: skip this speculation
+        except CacheFull:
+            # cache full: skip this speculation. Only CacheFull: any other
+            # error (a kernel that fails to build or launch) ends the run
+            # instead of passing for "no speculation"
+            return 0, None
         for i, (tok, cand) in enumerate(zip(tokens, cands)):
             if cand.probs()[0] < sp.p_accept + p_adjust:
                 break

@@ -163,6 +163,41 @@ BENCH_SCALES = {
 }
 
 
+def synthetic_spm_vocab(n_vocab: int, seed: int = 0) -> dict:
+    """Tokenizer metadata of a synthetic SentencePiece (llama) vocabulary
+    of exactly n_vocab tokens, made from `seed`: <unk>, <s> and </s>, the
+    256 byte tokens <0x00>..<0xFF> (byte fallback), "▁" and the 26 lowercase
+    letters, then unique "▁"-pieces with descending scores, each one a
+    shorter piece plus one letter (so SPM's bigram merges can reach every
+    piece). Anything else (capitals, digits, punctuation) falls back to
+    byte tokens."""
+    from ..tokenizer.vocab import TokenType as T
+
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    tokens = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+    types = [T.UNKNOWN, T.CONTROL, T.CONTROL] + [T.BYTE] * 256
+    pieces = ["▁"] + list(letters) + ["▁" + c for c in letters]
+    seen = set(pieces)
+    rng = np.random.default_rng(seed)
+    while len(tokens) + len(pieces) < n_vocab:
+        # grow one of the "▁"-pieces (pieces[27:]) by a letter
+        cand = pieces[27 + rng.integers(len(pieces) - 27)] + letters[rng.integers(26)]
+        if cand not in seen:
+            seen.add(cand)
+            pieces.append(cand)
+    pieces = pieces[: n_vocab - len(tokens)]
+    scores = [0.0] * len(tokens) + [-float(i) for i in range(len(pieces))]
+    return {
+        Keys.TOKENIZER_MODEL: "llama",
+        Keys.TOKENIZER_LIST: tokens + pieces,
+        Keys.TOKENIZER_SCORES: np.asarray(scores, np.float32),
+        Keys.TOKENIZER_TOKEN_TYPE: np.asarray(types + [T.NORMAL] * len(pieces), np.int32),
+        Keys.TOKENIZER_UNK_ID: 0,
+        Keys.TOKENIZER_BOS_ID: 1,
+        Keys.TOKENIZER_EOS_ID: 2,
+    }
+
+
 def build_bench_pair(
     tgt_path: str | Path,
     dft_path: str | Path,
@@ -171,6 +206,7 @@ def build_bench_pair(
     eps: float = 0.0,
     qtype: GGMLQuantType = GGMLQuantType.Q4_K,
     seed: int = 42,
+    vocab: bool = False,
     log=lambda *a: None,
 ):
     """Synthetic benchmark pair at production shapes.
@@ -199,7 +235,10 @@ def build_bench_pair(
     Upper layers share ONE template layer's weights — identical content,
     distinct HBM buffers, so per-step FLOPs and memory traffic are exactly
     those of a dense model while the host only quantizes ~2 unique layers
-    (7B quantize in ~1 min, not ~30)."""
+    (7B quantize in ~1 min, not ~30).
+
+    vocab: also write a synthetic SPM vocabulary of n_vocab tokens
+    (synthetic_spm_vocab) into both files, so the CLIs can tokenize."""
     from ..quant.formats import quantize
 
     sc = BENCH_SCALES[scale]
@@ -248,6 +287,7 @@ def build_bench_pair(
     globals_d = dict(globals_, output=output_d)
 
     memo: dict[int, bytes] = {}
+    vocab_kv = synthetic_spm_vocab(v, seed) if vocab else {}
 
     def qbytes(arr):
         key = id(arr)
@@ -268,6 +308,8 @@ def build_bench_pair(
         w.add_arch_kv(Keys.ROPE_FREQ_BASE, 10000.0)
         w.add_arch_kv(Keys.LAYER_NORM_RMS_EPS, 1e-5)
         w.add_kv("general.vocab_size", v)
+        for key, val in vocab_kv.items():
+            w.add_kv(key, val)
         slot_suffix = {
             "attn_norm": "attn_norm.weight", "wq": "attn_q.weight",
             "wk": "attn_k.weight", "wv": "attn_v.weight", "wo": "attn_output.weight",

@@ -1,0 +1,188 @@
+"""The port's CLIs and tokenizer against the JAX package's, on the CPU.
+
+The nano bench pair carries a synthetic SPM vocabulary
+(tools/testmodel.synthetic_spm_vocab; no vocabulary file is needed), so
+both packages' `main` and `speculative` run on the same two files. Greedy
+decoding on the pair's logit margin makes the printed text a strict
+comparison: the port (`--device cpu`, the kernels' plain versions) must
+print the JAX package's stdout byte for byte, under the default layout
+(k_major off the accelerator in both packages) and under i4g. Options the
+port does not have yet must exit with an error naming their ROADMAP queue.
+"""
+
+import contextlib
+import dataclasses
+import io
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from pipeinfer_tpu.cli import main as j_main
+from pipeinfer_tpu.cli import speculative as j_spec
+from pipeinfer_tpu.gguf.constants import GGMLQuantType as JQ
+from pipeinfer_tpu.gguf.reader import GGUFReader as JReader
+from pipeinfer_tpu.models import loader as j_loader
+from pipeinfer_tpu.tokenizer import tokenizer_from_gguf as j_tokenizer
+from pipeinfer_tpu.tokenizer.stream import StreamDecoder as JStream
+from pipeinfer_tpu_torch.cli import main as t_main
+from pipeinfer_tpu_torch.cli import speculative as t_spec
+from pipeinfer_tpu_torch.gguf.constants import GGMLQuantType as TQ
+from pipeinfer_tpu_torch.gguf.reader import GGUFReader as TReader
+from pipeinfer_tpu_torch.models import loader as t_loader
+from pipeinfer_tpu_torch.tokenizer import tokenizer_from_gguf as t_tokenizer
+from pipeinfer_tpu_torch.tokenizer.stream import StreamDecoder as TStream
+from pipeinfer_tpu_torch.tools import testmodel
+
+# The suite runs as several test processes on one machine, and torch's
+# OpenMP pools spin-wait: two processes decoding at once with a full pool
+# each starve one another by orders of magnitude. Every process collects
+# this module, so this keeps each one's torch to one thread.
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+PROMPT = "Once upon a time, in 2024: héllo! 日本"
+SPEC_CASES = {
+    "controller_np1": ["--engine", "controller", "-np", "1", "--draft", "6"],  # corrected
+    "trees_np3": ["--draft", "4"],  # the default -np 3: host-verified trees
+    "auto_np3": ["--engine", "auto", "--draft", "4"],  # auto keeps the controller for trees
+    "sync": ["--engine", "sync", "-np", "1"],
+}
+
+
+@pytest.fixture(scope="module")
+def pair(tmp_path_factory):
+    d = tmp_path_factory.mktemp("torch_cli")
+    tgt, dft = d / "t.gguf", d / "d.gguf"
+    testmodel.build_bench_pair(tgt, dft, scale="nano", eps=0.5, vocab=True)
+    return str(tgt), str(dft)
+
+
+def _greedy(pair, n=48):
+    return ["-m", pair[0], "-p", PROMPT, "-n", str(n), "--temp", "0", "--repeat-penalty", "1.0",
+            "--repeat-last-n", "0", "--ignore-eos", "-c", "256"]
+
+
+def _stdout(entry, argv) -> str:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert entry(argv) == 0
+    return buf.getvalue()
+
+
+def _tokenizers(path):
+    with JReader(path) as r:
+        jt = j_tokenizer(r)
+    with TReader(path) as r:
+        tt = t_tokenizer(r)
+    return jt, tt
+
+
+def test_tokenizer_matches_jax(pair):
+    """Encode (with and without BOS), byte fallback, decode and the
+    streaming decoder agree token for token and byte for byte."""
+    jt, tt = _tokenizers(pair[0])
+    assert dataclasses.asdict(tt.vocab) == dataclasses.asdict(jt.vocab)
+    assert tt.vocab.n_vocab == 2048
+    texts = ["", "hello world", " leading space", PROMPT, "日本語 🙂 tabs\tand\nnewlines",
+             "zzqx qqq vvv", "ALL CAPS, digits 0123 and ~punctuation~"]
+    for text in texts:
+        for bos in (True, False):
+            assert tt.encode(text, add_bos=bos) == jt.encode(text, add_bos=bos), text
+    ids = tt.encode("日本 é", add_bos=False)
+    assert sum(3 <= i < 259 for i in ids) >= 7  # UTF-8 bytes through <0xNN> tokens
+    assert tt.decode(ids) == jt.decode(ids) and "日本 é" in tt.decode(ids)
+    rng = np.random.default_rng(5)
+    for _ in range(20):
+        ids = rng.integers(0, 2048, 40).tolist()
+        assert tt.decode(ids) == jt.decode(ids)
+    ids = tt.encode("a日🙂b", add_bos=True) + rng.integers(0, 2048, 60).tolist()
+    js, ts = JStream(jt), TStream(tt)
+    assert [ts.feed(i) for i in ids] == [js.feed(i) for i in ids]
+    assert ts.flush() == js.flush()
+
+
+def test_default_layout_is_k_major_on_the_cpu(monkeypatch):
+    monkeypatch.delenv("PIPEINFER_WEIGHT_LAYOUT", raising=False)
+    assert j_loader.matmul_layout(JQ.Q4_K) == "k_major"  # the JAX package off the TPU
+    for q in (TQ.Q4_K, TQ.Q6_K):
+        assert t_loader.matmul_layout(q, "cpu") == "k_major"
+    assert t_loader.matmul_layout(TQ.Q4_K, "cuda") == "i4g"
+    assert t_loader.matmul_layout(TQ.Q6_K, "cuda") == "i8g"
+    for env in ("k_major", "i8", "k4", "i8g", "i4g"):
+        monkeypatch.setenv("PIPEINFER_WEIGHT_LAYOUT", env)
+        assert t_loader.matmul_layout(TQ.Q4_K, "cuda") == t_loader.matmul_layout(None, "cpu") == env
+
+
+@pytest.mark.parametrize("layout", ["default", "i4g"])
+@pytest.mark.parametrize("case", ["main", *SPEC_CASES])
+def test_port_cli_prints_the_jax_stdout(pair, layout, case, monkeypatch):
+    """Each engine prints the JAX package's text, which is also the plain
+    greedy text of `main` (speculation never changes a greedy stream)."""
+    if layout == "default":
+        monkeypatch.delenv("PIPEINFER_WEIGHT_LAYOUT", raising=False)
+    else:
+        monkeypatch.setenv("PIPEINFER_WEIGHT_LAYOUT", layout)
+    if case == "main":
+        argv, j_entry, t_entry = _greedy(pair), j_main.main, t_main.main
+    else:
+        argv, j_entry, t_entry = _greedy(pair) + ["-md", pair[1], *SPEC_CASES[case]], \
+            j_spec.main, t_spec.main
+    want = _stdout(j_entry, argv)
+    got = _stdout(t_entry, argv + ["--device", "cpu"])
+    assert got == want
+    plain = _stdout(t_main.main, _greedy(pair) + ["--device", "cpu"])
+    assert got == plain and len(got) > len(PROMPT) + 48
+
+
+def test_grammar_run_matches_jax(pair, monkeypatch):
+    """A GBNF grammar masks the verifier's samples (and the drafts): the
+    same constrained text in both packages, only letters and spaces."""
+    monkeypatch.delenv("PIPEINFER_WEIGHT_LAYOUT", raising=False)
+    argv = _greedy(pair, n=8) + ["-md", pair[1], "--engine", "controller", "-np", "1",
+                                 "--grammar", "root ::= [a-z ]+"]
+    want = _stdout(j_spec.main, argv)
+    got = _stdout(t_spec.main, argv + ["--device", "cpu"])
+    assert got == want
+    prompt_text = _stdout(t_main.main, _greedy(pair, n=0) + ["--device", "cpu"])[:-1]
+    generated = got[len(prompt_text):-1]
+    assert generated and set(generated) <= set("abcdefghijklmnopqrstuvwxyz ")
+
+
+def test_module_entry_runs_as_a_program(pair):
+    """`python -m pipeinfer_tpu_torch.cli.speculative` in a process of its
+    own prints what the in-process call prints."""
+    argv = _greedy(pair, n=16) + ["-md", pair[1], "--engine", "controller", "-np", "1",
+                                  "--device", "cpu"]
+    out = subprocess.run([sys.executable, "-m", "pipeinfer_tpu_torch.cli.speculative", *argv],
+                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout == _stdout(t_spec.main, argv)
+    assert "n_accept" in out.stderr
+
+
+@pytest.mark.parametrize("extra", [["-i"], ["--interactive-first"], ["--instruct"], ["--chatml"],
+                                   ["--fim-prefix", "def f("], ["--prompt-cache", "s.bin"],
+                                   ["--lora", "a.gguf"], ["--logdir", "logs"],
+                                   ["--profile", "trace"]])
+def test_main_refuses_unported_options(extra, capsys):
+    with pytest.raises(SystemExit) as e:
+        t_main.main(["-m", "absent.gguf", "--device", "cpu", *extra])
+    assert e.value.code not in (0, None) and "ROADMAP.md queue 10" in str(e.value.code)
+
+
+@pytest.mark.parametrize("extra,queue", [
+    (["--engine", "device-loop"], "queue 1 item 6"),
+    (["--device-loop"], "queue 1 item 6"),
+    (["--engine", "auto", "-np", "1", "--temp", "0", "--repeat-penalty", "1.0"], "queue 1 item 6"),
+    (["--stages", "2"], "queue 8"),
+])
+def test_speculative_refuses_unported_engines(extra, queue):
+    """Never another engine behind the user's back: the device loop (also
+    where --engine auto would pick it) and staged targets exit."""
+    with pytest.raises(SystemExit) as e:
+        t_spec.main(["-m", "absent.gguf", "-md", "absent.gguf", "--device", "cpu", *extra])
+    assert e.value.code not in (0, None) and f"ROADMAP.md {queue}" in str(e.value.code)

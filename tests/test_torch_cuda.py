@@ -1,7 +1,8 @@
 """The port's CUDA side at small shapes: each kernel wrapper against its
-plain version on the card, its launch counter, its input checks, the
-non-blocking fetch, and the nano bench pair's controller stream on the card
-against the same stream on the CPU.
+plain version on the card, its launch counter (which a refused launch
+leaves alone), its input checks, the non-blocking fetch, and the nano
+bench pair's controller stream on the card against the same stream on the
+CPU.
 
 Every test here needs a CUDA card and skips without one (decided in the
 `cuda` fixture, not at import). On a machine with a card:
@@ -18,6 +19,7 @@ import torch
 from pipeinfer_tpu_torch.gguf.constants import GGMLQuantType
 from pipeinfer_tpu_torch.models import load_model
 from pipeinfer_tpu_torch.ops import cell_attention as CA
+from pipeinfer_tpu_torch.ops import cuda_build
 from pipeinfer_tpu_torch.ops import qmatmul as Q
 from pipeinfer_tpu_torch.quant import pack
 from pipeinfer_tpu_torch.runtime.context import Batch, InferenceContext, h2d, to_host_async
@@ -53,6 +55,81 @@ def test_qmatmul_kernel_matches_plain(cuda, layout, qtype, k, m):
     want = Q.qmatmul(x.cpu(), cpu_qt)
     assert counter.launches == before + 1  # the CPU call ran the plain version
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+EXACT_CASES = [("k_major", q) for q in ("Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q8_0", "Q2_K", "Q3_K",
+                                         "Q4_K", "Q5_K", "Q6_K")] \
+    + [("i8", q) for q in ("Q4_K", "Q6_K", "Q8_0")] + [("k4", q) for q in ("Q4_0", "Q4_K")]
+EXACT_COUNTERS = {"k_major": Q.kmajor_matmul, "i8": Q.i8_matmul, "k4": Q.k4_matmul}
+
+
+@pytest.mark.parametrize("layout,qname", EXACT_CASES)
+@pytest.mark.parametrize("m", [1, 5, 33])
+def test_exact_layout_kernels_match_plain(cuda, layout, qname, m):
+    """The k_major, i8 and k4 kernels against their plain versions at a
+    ragged N (200: not a multiple of the 32-column tile) and K = 1280 (five
+    pack groups). Each weight is the same bf16 value on both sides, so
+    only the f32 summation order differs: atol 1e-5 of max|out|."""
+    g = np.random.default_rng(m)
+    w = (g.standard_normal((200, 1280)) * 0.1).astype(np.float32)
+    qt = Q.to_device(pack.pack_array(w, GGMLQuantType[qname]), layout=layout, device=cuda)
+    assert qt.layout == layout
+    x = torch.from_numpy(g.standard_normal((m, 1280)).astype(np.float32)).to(cuda)
+    counter = EXACT_COUNTERS[layout]
+    before = counter.launches
+    got = Q.qmatmul(x, qt)
+    assert counter.launches == before + 1
+    cpu_qt = Q.QuantTensor(*(None if p is None else p.cpu()
+                             for p in (qt.qs, qt.qh, qt.scales, qt.bias)),
+                           qtype=qt.qtype, shape=qt.shape, layout=qt.layout,
+                           scales2=None if qt.scales2 is None else qt.scales2.cpu(),
+                           bias2=None if qt.bias2 is None else qt.bias2.cpu())
+    want = Q.qmatmul(x.cpu(), cpu_qt)
+    assert counter.launches == before + 1  # the CPU call ran the plain version
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+def test_refused_launch_leaves_the_count_alone(cuda, monkeypatch):
+    """A launch whose C entry reports an error raises, and its wrapper's
+    count stays where it was: counts only record kernels that ran."""
+    qt = Q.to_device(pack.pack_array(np.ones((64, 256), np.float32), GGMLQuantType.Q4_K),
+                     layout="k_major", device=cuda)
+    x = torch.ones(1, 256, device=cuda)
+    Q.qmatmul(x, qt)  # loads the library and its entry point
+    before = Q.kmajor_matmul.launches
+    monkeypatch.setitem(cuda_build._fns, "qmatmul_kmajor:pi_kmajor_matmul",
+                        lambda *a: 9)  # cudaErrorInvalidConfiguration
+    with pytest.raises(RuntimeError, match="cudaError 9"):
+        Q.qmatmul(x, qt)
+    assert Q.kmajor_matmul.launches == before
+
+
+def test_exact_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros(2, 512, dtype=torch.bfloat16, device=cuda)
+    qs = torch.zeros(256, 64, dtype=torch.uint8, device=cuda)
+    s = torch.ones(16, 64, device=cuda)
+    Q.kmajor_matmul(x, qs, None, s, s, bits=4, group=32)
+    with pytest.raises(ValueError, match="contiguous CUDA"):
+        Q.kmajor_matmul(x.float(), qs, None, s, s, bits=4, group=32)
+    with pytest.raises(ValueError, match="do not fit"):
+        Q.kmajor_matmul(x, qs, None, s, None, bits=4, group=32)  # a 4-bit format has a bias
+    with pytest.raises(ValueError, match="do not fit"):
+        Q.kmajor_matmul(x, qs, None, s, s, bits=5, group=32)  # 5 bits need qh
+    with pytest.raises(ValueError, match="aligned"):
+        Q.kmajor_matmul(x.reshape(-1)[2:514].reshape(1, 512), qs, None, s, s, bits=4, group=32)
+    q8 = torch.zeros(512, 64, dtype=torch.int8, device=cuda)
+    xg = torch.zeros(2, 16, device=cuda)
+    Q.i8_matmul(x, xg, q8, s, s, group=32)
+    with pytest.raises(ValueError, match="do not fit"):
+        Q.i8_matmul(x, None, q8, s, s, group=32)
+    with pytest.raises(ValueError, match="do not fit"):
+        Q.i8_matmul(x, xg, q8, s, s, group=16)
+    s4 = torch.ones(8, 64, device=cuda)
+    Q.k4_matmul(x, xg, qs, s4, s4, s4, s4)
+    with pytest.raises(ValueError, match="do not fit"):
+        Q.k4_matmul(x, xg, qs[:128], s4[:4], s4[:4], s4[:4], s4[:4])
+    with pytest.raises(ValueError, match="contiguous CUDA"):
+        Q.k4_matmul(x, xg, qs.to(torch.int8), s4, s4, s4, s4)
 
 
 @pytest.mark.parametrize("t,hot", [(1, 0), (4, 512), (9, 0)])
@@ -120,7 +197,9 @@ def test_async_fetch_does_not_block(cuda):
     assert h2d(np.arange(5, dtype=np.int32), cuda).tolist() == [0, 1, 2, 3, 4]
 
 
-def test_nano_controller_on_card_matches_cpu(cuda, tmp_path):
+def test_nano_controller_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    # one layout on both devices (the default is i4g on CUDA, k_major on the CPU)
+    monkeypatch.setenv("PIPEINFER_WEIGHT_LAYOUT", "i4g")
     testmodel.build_bench_pair(tmp_path / "t.gguf", tmp_path / "d.gguf", scale="nano", eps=0.5)
     prompt, n = list(range(5, 25)), 48
     greedy = SamplingParams(temp=0.0, penalty_repeat=1.0, penalty_last_n=0)

@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: importing every module of
-pipeinfer_tpu_torch loads neither jax nor pipeinfer_tpu, chip_smoke.py
-imports neither, and the entry points refuse to fall back to the CPU."""
+pipeinfer_tpu_torch (the CLIs and the tokenizer included) loads neither jax
+nor pipeinfer_tpu, nor the `regex` package (which only a BPE vocabulary
+needs), chip_smoke.py imports neither, and the entry points refuse to fall
+back to the CPU."""
 
 import ast
 import json
@@ -22,7 +24,7 @@ for n in names:
     importlib.import_module(n)
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.") or m == "pipeinfer_tpu"
-                or m.startswith("pipeinfer_tpu."))
+                or m.startswith("pipeinfer_tpu.") or m == "regex")
 print(json.dumps({"modules": names, "leaked": leaked}))
 """
 
@@ -34,7 +36,9 @@ def test_import_leaves_jax_and_reference_out():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["leaked"] == []
     for mod in ("ops.qmatmul", "ops.cell_attention", "runtime.context", "spec.controller",
-                "spec.corrected", "models.convert"):
+                "spec.corrected", "models.convert", "cli.args", "cli.main", "cli.speculative",
+                "tokenizer.vocab", "tokenizer.spm", "tokenizer.bpe", "tokenizer.stream",
+                "sampling.grammar", "utils.kv_view"):
         assert f"pipeinfer_tpu_torch.{mod}" in res["modules"]
 
 
