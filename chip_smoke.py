@@ -362,6 +362,30 @@ def phase_exact(records: dict, details: list):
             shape=f"M=1 N={r['N']} K={r['K']} (w_down, {qname})")
 
 
+ATTN_TIMED = [  # (H, KVH, D, C, hot, T) timed against the plain version and SDPA
+    # the 7B pair's heads at a 4096-cell pool (the record's shape: T = 1, hot = 0)
+    *[(32, 32, 128, 4096, hot, t) for hot in (0, 2048) for t in (1, 4, 33)],
+    # the 1024-cell pools of run_pair and the CLI runs, with their hot marks
+    *[(32, 32, 128, 1024, hot, t) for hot in (0, 512) for t in (1, 4)],
+    # the toy pair's heads (GQA, G = 2)
+    *[(16, 8, 64, 1024, 0, t) for t in (1, 4)],
+]
+ATTN_CHECKED = [(32, 32, 128, 1024, 0, 4)]  # correctness only: ALiBi, seq ids 0 and 40
+
+
+def _attn_cache(kvh, d, c, dev, g):
+    """bf16 K and V [L, KVH, C, D], made one layer at a time, with enough
+    layers L that cycling them finds each one cold in L2 even at hot = C/2."""
+    import torch
+
+    n_l = max(4, copies_for(2 * kvh * (c // 2) * d * 2))
+    kv = torch.empty(2, n_l, kvh, c, d, dtype=torch.bfloat16, device=dev)
+    for i in range(2):
+        for layer in range(n_l):
+            kv[i, layer] = torch.randn(kvh, c, d, device=dev, generator=g)
+    return kv[0], kv[1]
+
+
 def phase_attention(records: dict, details: list):
     import torch
     import torch.nn.functional as F
@@ -370,68 +394,97 @@ def phase_attention(records: dict, details: list):
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    n_l, kvh, h, d, c, w = 4, 32, 32, 128, 4096, 2
-    kc = torch.randn(n_l, kvh, c, d, device=dev, generator=g).to(torch.bfloat16)
-    vc = torch.randn(n_l, kvh, c, d, device=dev, generator=g).to(torch.bfloat16)
+    w = 2
     rep = None
     worst = 0.0
-    for hot in (0, 2048):
+    cache_key = kc = vc = None
+    for (h, kvh, d, c, hot, t), timed in [(s, True) for s in ATTN_TIMED] + \
+            [(s, False) for s in ATTN_CHECKED]:
+        if (kvh, d, c) != cache_key:
+            kc = vc = None
+            torch.cuda.empty_cache()
+            kc, vc = _attn_cache(kvh, d, c, dev, g)
+            cache_key = (kvh, d, c)
+        n_l = kc.shape[0]
         used = hot or c
         pos = torch.full((c,), -1, dtype=torch.int32, device=dev)
         pos[:used] = torch.arange(used, dtype=torch.int32, device=dev)
         seq = torch.zeros(c, w, dtype=torch.int32, device=dev)
         seq[:used, 0] = 1 | (torch.randint(0, 2, (used,), device=dev, generator=g) << 1).int()
-        for t in (1, 4, 33):
-            q = torch.randn(t, h, d, device=dev, generator=g)
-            tok_pos = torch.randint(used // 2, used, (t,), device=dev, generator=g).int()
-            tok_seq = torch.randint(0, 2, (t,), device=dev, generator=g).int()
-            valid = torch.ones(t, dtype=torch.bool, device=dev)
-            if t > 1:
-                valid[-1] = False
-            args = (q, kc, vc, pos, seq, tok_pos, tok_seq, valid)
-            kw = dict(scale=d ** -0.5, hot=hot)
-            got = CA.cell_attention(*args, layer=1, **kw)
-            cc = hot or c
-            want = CA._cell_attention_plain(q, kc, vc, pos, seq, tok_pos, tok_seq, valid, 1,
-                                            d ** -0.5, None, cc)
-            torch.cuda.synchronize()
-            err = (got[valid] - want[valid]).abs().max().item()
-            if not err <= ATTN_ATOL:
-                raise AssertionError(f"cell_attention T={t} hot={hot}: max err {err}")
-            worst = max(worst, err)
-            it = iter(range(1 << 30))
-            k_ms = gpu_ms(lambda: CA.cell_attention(*args, layer=next(it) % n_l, **kw))
-            p_ms = gpu_ms(lambda: CA._cell_attention_plain(
-                q, kc, vc, pos, seq, tok_pos, tok_seq, valid, 1, d ** -0.5, None, cc),
-                iters=3, warmup=1)
-            # library call: SDPA over the same layer with the visibility
-            # as an additive mask (built outside the timed call)
-            mask = torch.where(
-                ((seq[:cc].long()[:, (tok_seq // 32).long()] >> (tok_seq % 32).long()[None])
-                 & 1).T.bool() & (pos[None, :cc] <= tok_pos[:, None]) & (pos[None, :cc] >= 0)
-                & valid[:, None], 0.0, -1e9).to(torch.bfloat16)
-            qb = q.to(torch.bfloat16).transpose(0, 1)[None]  # [1, H, T, D]
-            kl, vl = kc[1, :, :cc][None], vc[1, :, :cc][None]
-            lib_ms = gpu_ms(lambda: F.scaled_dot_product_attention(qb, kl, vl, attn_mask=mask))
-            io = 2 * kvh * cc * d * 2 + nbytes(q, tok_pos, tok_seq, valid) + cc * 4 * (1 + w) \
-                + t * h * d * 4
-            b_ms, b_by = bound(io, 4 * t * h * cc * d, "f32")
-            row = dict(kernel="cell_attention", T=t, C=c, hot=hot, H=h, KVH=kvh, D=d,
-                       max_abs_err=err, tol=ATTN_ATOL, ms=k_ms, plain_ms=p_ms,
-                       library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
-            details.append(row)
-            log(f"cell_attention T={t:2d} C={c} hot={hot:4d}: err {err:.3g} (tol {ATTN_ATOL})"
-                f"  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  SDPA {lib_ms:.4f} ms"
-                f"  bound {b_ms:.4f} ms ({b_by})")
-            if t == 1 and hot == 0:
-                rep = row
+        q = torch.randn(t, h, d, device=dev, generator=g)
+        tok_pos = torch.randint(used // 2, used, (t,), device=dev, generator=g).int()
+        tok_seq = torch.randint(0, 2, (t,), device=dev, generator=g).int()
+        alibi = None
+        if not timed:  # seq id 40 (bit 8 of word 1) on every other cell, ALiBi on
+            seq[:used:2, 1] = 1 << 8
+            tok_seq[::2] = 40
+            alibi = torch.linspace(0.01, 0.5, h, device=dev)
+        valid = torch.ones(t, dtype=torch.bool, device=dev)
+        if t > 1:
+            valid[-1] = False
+        args = (q, kc, vc, pos, seq, tok_pos, tok_seq, valid)
+        kw = dict(scale=d ** -0.5, hot=hot, alibi=alibi)
+        got = CA.cell_attention(*args, layer=1, **kw)
+        want = CA._cell_attention_plain(q, kc, vc, pos, seq, tok_pos, tok_seq, valid, 1,
+                                        d ** -0.5, alibi, used)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        cut = CA.plan(t, h, kvh, d, used)
+        shape = f"T={t:2d} H={h} KVH={kvh} D={d} C={c} hot={hot:4d}"
+        if not err <= ATTN_ATOL:
+            raise AssertionError(f"cell_attention {shape}: max err {err}")
+        worst = max(worst, err)
+        cut_s = (f"{cut.n_splits} splits of {cut.split} cells, {cut.row_tiles} row tiles of "
+                 f"{cut.rows}, grid {cut.blocks} blocks")
+        if not timed:
+            details.append(dict(kernel="cell_attention", T=t, C=c, hot=hot, H=h, KVH=kvh, D=d,
+                                alibi=True, max_abs_err=err, tol=ATTN_ATOL, n_splits=cut.n_splits,
+                                split=cut.split, blocks=cut.blocks))
+            log(f"cell_attention {shape} ALiBi, seq ids 0/40: err {err:.3g} (tol {ATTN_ATOL})"
+                f"  [{cut_s}]")
+            continue
+        it = iter(range(1 << 30))
+        k_ms = gpu_ms(lambda: CA.cell_attention(*args, layer=next(it) % n_l, **kw))
+        p_ms = gpu_ms(lambda: CA._cell_attention_plain(
+            q, kc, vc, pos, seq, tok_pos, tok_seq, valid, 1, d ** -0.5, None, used),
+            iters=3, warmup=1)
+        # library call: SDPA over the same layers (cycled like the kernel's)
+        # with the visibility as an additive mask built outside the timed call
+        mask = torch.where(
+            ((seq[:used].long()[:, (tok_seq // 32).long()] >> (tok_seq % 32).long()[None])
+             & 1).T.bool() & (pos[None, :used] <= tok_pos[:, None]) & (pos[None, :used] >= 0)
+            & valid[:, None], 0.0, -1e9).to(torch.bfloat16)
+        qb = q.to(torch.bfloat16).transpose(0, 1)[None]  # [1, H, T, D]
+        kv = [(kc[i, :, :used][None], vc[i, :, :used][None]) for i in range(n_l)]
+        it2 = iter(range(1 << 30))
+
+        def sdpa():
+            kl, vl = kv[next(it2) % n_l]
+            return F.scaled_dot_product_attention(qb, kl, vl, attn_mask=mask,
+                                                  enable_gqa=kvh != h)
+
+        lib_ms = gpu_ms(sdpa)
+        io = 2 * kvh * used * d * 2 + nbytes(q, tok_pos, tok_seq, valid) + used * 4 * (1 + w) \
+            + t * h * d * 4
+        b_ms, b_by = bound(io, 4 * t * h * used * d, "f32")
+        row = dict(kernel="cell_attention", T=t, C=c, hot=hot, H=h, KVH=kvh, D=d,
+                   max_abs_err=err, tol=ATTN_ATOL, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                   bound_ms=b_ms, bound_by=b_by, n_splits=cut.n_splits, split=cut.split,
+                   row_tiles=cut.row_tiles, blocks=cut.blocks)
+        details.append(row)
+        log(f"cell_attention {shape}: err {err:.3g} (tol {ATTN_ATOL})  kernel {k_ms:.4f} ms"
+            f"  plain {p_ms:.4f} ms  SDPA {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})"
+            f"  [{cut_s}]")
+        if (h, c, t, hot) == (32, 4096, 1, 0):
+            rep = row
+    del kc, vc
     records["cell_attention"] = dict(
         name="cell_attention", route="cuda", source="pipeinfer_tpu_torch/csrc/cell_attention.cu",
         replaces="pipeinfer_tpu/ops/cell_attention.py:27", launches=0, max_abs_err=worst,
         ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
         bound_by=rep["bound_by"], library_ms=rep["library_ms"],
         library="F.scaled_dot_product_attention bf16 with an additive mask",
-        shape=f"T=1 H=KVH=32 D=128 C={c} (whole pool)")
+        shape=f"T=1 H=KVH=32 D=128 C=4096 (whole pool), {rep['n_splits']} splits")
 
 
 # ---------------------------------------------------------------------------

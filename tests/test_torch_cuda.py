@@ -132,10 +132,24 @@ def test_exact_wrappers_reject_what_the_kernels_do_not_take(cuda):
         Q.k4_matmul(x, xg, qs.to(torch.int8), s4, s4, s4, s4)
 
 
-@pytest.mark.parametrize("t,hot", [(1, 0), (4, 512), (9, 0)])
-def test_cell_attention_kernel_matches_plain(cuda, t, hot):
+ATTN_CASES = {  # name -> (t, hot, h, kvh, d, c, one split all masked)
+    "t1": (1, 0, 8, 2, 64, 1024, False),
+    "t4_hot512": (4, 512, 8, 2, 64, 1024, False),
+    "t9": (9, 0, 8, 2, 64, 1024, False),
+    "t1_7b_heads": (1, 0, 32, 32, 128, 4096, False),  # the main path's heads and pool
+    "t4_toy_gqa": (4, 0, 16, 8, 64, 1024, False),  # the toy pair's heads
+    "t4_masked_split": (4, 0, 8, 2, 64, 1024, True),
+    "t33": (33, 0, 32, 32, 128, 1024, False),
+    "t2_two_rows": (2, 0, 32, 32, 128, 1024, False),  # 2 rows per block
+    "t3_d32": (3, 0, 4, 2, 32, 512, False),  # 4 lanes per cell, 2 rows per block
+}
+
+
+@pytest.mark.parametrize("case", list(ATTN_CASES))
+def test_cell_attention_kernel_matches_plain(cuda, case):
+    t, hot, h, kvh, d, c, masked_split = ATTN_CASES[case]
     g = torch.Generator(device=cuda).manual_seed(t)
-    n_l, kvh, h, d, c = 2, 2, 8, 64, 1024
+    n_l = 2
     kc = torch.randn(n_l, kvh, c, d, device=cuda, generator=g).to(torch.bfloat16)
     vc = torch.randn(n_l, kvh, c, d, device=cuda, generator=g).to(torch.bfloat16)
     pos = torch.arange(c, dtype=torch.int32, device=cuda)
@@ -143,6 +157,10 @@ def test_cell_attention_kernel_matches_plain(cuda, t, hot):
     seq = torch.zeros(c, 4, dtype=torch.int32, device=cuda)
     seq[:, 0] = 1
     seq[::3, 3] = -(1 << 31)  # seq id 127 on every third cell: bit 31 of word 3
+    cut = CA.plan(t, h, kvh, d, hot or c)
+    if masked_split:
+        assert cut.n_splits > 2
+        seq[cut.split:2 * cut.split] = 0
     q = torch.randn(t, h, d, device=cuda, generator=g)
     tok_pos = torch.randint(100, 500, (t,), device=cuda, generator=g).int()
     tok_seq = torch.tensor([0, 127] * t, dtype=torch.int32)[:t].to(cuda)
