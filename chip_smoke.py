@@ -114,6 +114,7 @@ I4G_SHAPES = {  # (N, K) of every 4-bit tensor of the 7B pair
 }
 I8G_SHAPES = {"wo": (4096, 4096), "w_down": (4096, 11008)}
 MS = (1, 9, 33)
+I4G_MS = (1, 8, 9, 33)  # 8: the verify bucket (draft 5 gives T = 6, padded to 8)
 MATMUL_RTOL = 1e-4  # of max|plain|: exact integer dots, f32 order of the scaled sums
 ATTN_ATOL = 1e-4  # f32 online vs one-pass softmax, summation order
 
@@ -126,6 +127,17 @@ def _rand_i4g(n, k, dev, g):
     step = torch.rand(kp // 128, n, device=dev, generator=g) * 0.01 + 1e-3
     wmin = -torch.rand(kp // 128, n, device=dev, generator=g) * 0.08
     return qs, step, wmin
+
+
+def _i4g_cut(Q, m: int, n: int, kp: int) -> dict | None:
+    """The cut the i4g wrapper makes for this call, for the log (None for a
+    tree from before ``i4g_plan``, so the script can time the older kernel)."""
+    import torch
+
+    plan = getattr(Q, "i4g_plan", None)
+    if plan is None:
+        return None
+    return plan(m, n, kp, torch.cuda.get_device_properties(0).multi_processor_count)._asdict()
 
 
 def phase_qmatmul(records: dict, details: list):
@@ -152,7 +164,7 @@ def phase_qmatmul(records: dict, details: list):
                 qt = Q.QuantTensor(planes[0][0], None, planes[0][1], planes[0][1][:0],
                                    qtype=None, shape=(n, k), layout="i8g")
             w_bf16 = Q.dequant_T(qt, torch.bfloat16)  # [K, N], for the yardstick only
-            for m in MS:
+            for m in (I4G_MS if layout == "i4g" else MS):
                 x = torch.randn(m, k, device=dev, generator=g)
                 if layout == "i4g":
                     kp = planes[0][0].shape[0] * 2
@@ -168,14 +180,19 @@ def phase_qmatmul(records: dict, details: list):
                     kern, plain, name_k = Q.i8g_matmul, Q._i8g_plain, "i8g_matmul"
                     ops, kind = 2 * m * n * kp, "int8"
                 got = kern(*ins[0])
+                again = kern(*ins[0])
                 want = plain(*ins[0])
                 torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{name_k} {name} M={m}: two calls on the same inputs "
+                                         f"differ by up to {(got - again).abs().max().item()}")
                 err = (got - want).abs().max().item()
                 scale = want.abs().max().item()
                 if not err <= MATMUL_RTOL * scale:
                     raise AssertionError(f"{name_k} {name} M={m}: max err {err} > "
                                          f"{MATMUL_RTOL} * {scale}")
                 worst = max(worst, err)
+                cut = _i4g_cut(Q, m, n, ins[0][0].shape[1]) if layout == "i4g" else None
                 it = iter(range(1 << 30))
                 k_ms = gpu_ms(lambda: kern(*ins[next(it) % len(ins)]), iters=20)
                 p_ms = gpu_ms(lambda: plain(*ins[0]), iters=3, warmup=1)
@@ -184,11 +201,13 @@ def phase_qmatmul(records: dict, details: list):
                 b_ms, b_by = bound(nbytes(*ins[0]) + m * n * 4, ops, kind)
                 row = dict(kernel=name_k, tensor=name, N=n, K=k, M=m, max_abs_err=err,
                            tol=MATMUL_RTOL * scale, ms=k_ms, plain_ms=p_ms, yardstick_ms=lib_ms,
-                           bound_ms=b_ms, bound_by=b_by)
+                           bound_ms=b_ms, bound_by=b_by, plan=cut)
                 details.append(row)
                 log(f"{name_k:11s} {name:7s} [{n}x{k}] M={m:2d}: err {err:.3g} "
                     f"(tol {MATMUL_RTOL * scale:.3g})  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms"
-                    f"  bf16 GEMM {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+                    f"  bf16 GEMM {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})"
+                    + ("" if cut is None else f"  [{cut['splits']} splits of {cut['slabs']} "
+                       f"slabs, {cut['blocks']} blocks, row tile {cut['rows']}]"))
                 if name == "w_down" and m == 1:
                     rep[name_k] = row
             del planes, w_bf16
@@ -386,6 +405,45 @@ def _attn_cache(kvh, d, c, dev, g):
     return kv[0], kv[1]
 
 
+def attend_head_width_100(dev, g) -> dict:
+    """`attend` on the card for a head width the cell kernel does not take
+    (D = 100, OpenLLaMA-3B's heads) at a 512-cell pool: it must take the
+    dense path, without launching the kernel, and match that path on the
+    CPU."""
+    import torch
+
+    from pipeinfer_tpu_torch.ops import cell_attention as CA
+    from pipeinfer_tpu_torch.runtime import kv_cache as KV
+
+    t, h, d, c, used = 1, 32, 100, 512, 300
+    cache = KV.create(2, c, h, d, device=dev)
+    cache.k.copy_(torch.randn(cache.k.shape, device=dev, generator=g))
+    cache.v.copy_(torch.randn(cache.v.shape, device=dev, generator=g))
+    cache.pos[:used] = torch.arange(used, dtype=torch.int32, device=dev)
+    cache.seq[:used, 0] = 1
+    q = torch.randn(t, h, d, device=dev, generator=g)
+    tok_pos = torch.full((t,), used, dtype=torch.int32, device=dev)
+    tok_seq = torch.zeros(t, dtype=torch.int32, device=dev)
+    valid = torch.ones(t, dtype=torch.bool, device=dev)
+    if KV.use_cell_kernel(t, h, h, d, c, 0, True):
+        raise AssertionError("attend would send D = 100 to the cell kernel")
+    before = CA.cell_attention.launches
+    got = KV.attend(q, cache, 1, KV.attn_mask(cache, tok_pos, tok_seq), tok_pos, tok_seq, valid,
+                    scale=d ** -0.5)
+    torch.cuda.synchronize()
+    if CA.cell_attention.launches != before:
+        raise AssertionError("attend launched the cell kernel for D = 100")
+    cpu = KV.KVCache(cache.k.cpu(), cache.v.cpu(), cache.pos.cpu(), cache.seq.cpu())
+    want = KV.attend(q.cpu(), cpu, 1, KV.attn_mask(cpu, tok_pos.cpu(), tok_seq.cpu()),
+                     tok_pos.cpu(), tok_seq.cpu(), valid.cpu(), scale=d ** -0.5)
+    err = (got.cpu() - want).abs().max().item()
+    if not (got.shape == (t, h, d) and err <= ATTN_ATOL):
+        raise AssertionError(f"attend D = 100: shape {tuple(got.shape)}, max err {err}")
+    log(f"attend D=100 H=32 C=512 on the card: dense path, err {err:.3g} against the CPU "
+        f"(tol {ATTN_ATOL})")
+    return dict(kernel="attend_dense", T=t, H=h, D=d, C=c, max_abs_err=err, tol=ATTN_ATOL)
+
+
 def phase_attention(records: dict, details: list):
     import torch
     import torch.nn.functional as F
@@ -478,6 +536,7 @@ def phase_attention(records: dict, details: list):
         if (h, c, t, hot) == (32, 4096, 1, 0):
             rep = row
     del kc, vc
+    details.append(attend_head_width_100(dev, g))
     records["cell_attention"] = dict(
         name="cell_attention", route="cuda", source="pipeinfer_tpu_torch/csrc/cell_attention.cu",
         replaces="pipeinfer_tpu/ops/cell_attention.py:27", launches=0, max_abs_err=worst,
@@ -679,7 +738,8 @@ def run_cli_engines(pair, n_predict) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="kernels,main,i8g,cli",
-                    help="comma list of kernels, main, i8g, cli (default: all)")
+                    help="comma list of kernels, main, i8g, cli (default: all); qmatmul "
+                         "runs only the i4g and i8g part of kernels")
     ap.add_argument("--n-predict", type=int, default=128)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -721,8 +781,9 @@ def main() -> int:
     records: dict = {}
     details: list = []
     runs: list = []
-    if "kernels" in phases:
+    if phases & {"kernels", "qmatmul"}:
         phase_qmatmul(records, details)
+    if "kernels" in phases:
         phase_exact(records, details)
         phase_attention(records, details)
     if "main" in phases:

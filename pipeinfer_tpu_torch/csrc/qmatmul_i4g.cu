@@ -14,33 +14,57 @@
 // What bounds it on the H100: bytes. At decode M (1..33) each weight is used
 // M times, far below the ~295 operations per byte where compute would bind,
 // so the floor is qs (0.5 B/weight) plus step and wmin (8 B per 128
-// weights) read once at 3.35 TB/s. The design streams every byte once:
-// - one block per 32-column tile (and up to MT rows of x); N = 32000 gives
-//   1000 blocks, N = 4096 gives 128, so every SM has work without any
-//   cross-block reduction;
-// - 256 threads = 8 column groups (4 columns each, one 32-bit load covers
-//   them) x 32 K groups; K is cut into 32-packed-row chunks dealt round-robin
-//   to the K groups, each chunk lying inside one slab;
-// - four 32-bit loads (4 packed rows x 4 columns) are transposed in
-//   registers with __byte_perm into one word of 4 K values per column, the
-//   nibble planes are split with two masks, and __dp4a multiplies them with
-//   the s8 activations (read through the read-only cache: every K group of
-//   a block reads the same x);
-// - a chunk's integer sums are exact; they are scaled by step * sx on the
-//   output side into f32 accumulators, the 32 K groups are summed through
-//   shared memory, and the affine min term is added in the epilogue.
-// A later version would stage tiles with TMA and use the s8 tensor cores;
-// this one is the simple, exact first kernel.
+// weights) read once at 3.35 TB/s. The design keeps enough of those bytes
+// in flight on every SM, on the CUDA cores only:
+// - a block is 8 warps over a 128-column tile: a warp's 32 threads take 4
+//   adjacent columns each, so each of its loads reads 128 contiguous bytes
+//   of one packed row;
+// - split-K: the wrapper's plan (ops/qmatmul.py::i4g_plan) cuts the slabs
+//   into `splits` ranges of whole slabs, so that the grid (row tiles x
+//   column tiles x splits) fills the card's waves of resident blocks even
+//   at N = 4096; in each slab of its range, warp w takes packed rows
+//   [16 w, 16 w + 16) and starts all 16 of its word loads before it uses any;
+// - the 4 x 4 byte blocks are transposed in registers with __byte_perm
+//   into one word of 4 K values per column, the nibble planes split with
+//   two masks, and __dp4a multiplies them with the s8 activations (two
+//   16-byte loads per row, through the read-only cache);
+// - a slab's integer sums are exact in s32; they are scaled by step * sx
+//   (step read as one 16-byte load per half-slab) into f32 accumulators,
+//   and the affine min term xsum * sx * wmin of the slab's two half-slabs
+//   is added into the same accumulators by one warp of the block (warp
+//   s % 8), inside the weight pass;
+// - the 8 warps are summed through shared memory in warp order. With one
+//   split the block writes the output. Otherwise it writes an f32 partial
+//   [M, N] tile for its split, takes a ticket (an atomic add on one counter
+//   per row and column tile), and the block that takes the last ticket sums
+//   the splits' partials in split order and sets the counter back to zero.
+//   No atomics touch the output: calls on the same inputs are bitwise equal.
+// Out of scope here: tensor-core MMA, TMA staging, and activation
+// quantization inside the kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TN = 32;       // columns per block
-constexpr int KG = 32;       // K groups per block
-constexpr int CH = 32;       // packed rows per chunk
-constexpr int THREADS = 256; // (TN / 4) * KG
+constexpr int TN = 128;          // columns per block
+constexpr int KG = 8;            // warps per block, each a K group
+constexpr int CH = 16;           // packed rows a warp takes of each slab (KG * CH = 128)
+constexpr int THREADS = KG * 32;
+constexpr int BLOCKS_PER_SM = 2; // I4G_BLOCKS_PER_SM in ops/qmatmul.py
+constexpr int TICKETS = 4096;    // I4G_TICKETS: counters at the head of the scratch buffer
+
+struct Args {
+  const int8_t* xq;      // [M, Kp]
+  const float* xsum;     // [M, Kp/128]
+  const float* sx;       // [Kp/128]
+  const uint8_t* qs;     // [Kp/2, N]
+  const float* step;     // [Kp/128, N]
+  const float* wmin;     // [Kp/128, N]
+  float* out;            // [M, N]
+  int* tickets;          // [TICKETS], zero between calls; then f32 partials [splits, M, N]
+  int M, N, Kp, slabs, splits;
+};
 
 __device__ __forceinline__ void transpose4x4(uint32_t r0, uint32_t r1, uint32_t r2,
                                              uint32_t r3, uint32_t out[4]) {
@@ -56,19 +80,15 @@ __device__ __forceinline__ void transpose4x4(uint32_t r0, uint32_t r1, uint32_t 
 }
 
 template <int MT>
-__global__ void __launch_bounds__(THREADS)
-i4g_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xsum,
-           const float* __restrict__ sx, const uint8_t* __restrict__ qs,
-           const float* __restrict__ step, const float* __restrict__ wmin,
-           float* __restrict__ out, int M, int N, int Kp) {
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) i4g_kernel(Args a) {
   __shared__ float red[KG][MT][TN];
-  const int tx = threadIdx.x % (TN / 4);
-  const int kg = threadIdx.x / (TN / 4);
-  const int n0 = blockIdx.x * TN + tx * 4;
-  const int m0 = blockIdx.y * MT;
-  const int rows = min(MT, M - m0);
-  const int nchunk = Kp / 2 / CH;
-  const int nhalf = Kp / 128;
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int rt = blockIdx.x, ct = blockIdx.y, sp = blockIdx.z;
+  const int n0 = ct * TN + lane * 4;
+  const int m0 = rt * MT;
+  const int rows = min(MT, a.M - m0);
+  const int nhalf = a.Kp / 128;
+  const int s0 = sp * a.slabs, s1 = min(a.Kp / 256, s0 + a.slabs);
 
   float acc[MT][4];
 #pragma unroll
@@ -76,55 +96,71 @@ i4g_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xsum,
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[m][c] = 0.f;
 
-  if (n0 < N) {
-    for (int ch = kg; ch < nchunk; ch += KG) {
-      const int p0 = ch * CH;          // first packed row of the chunk
-      const int slab = p0 / 128;
-      const int klo = slab * 256 + (p0 - slab * 128);
-      const int khi = klo + 128;
-      int ilo[MT][4], ihi[MT][4];
+  if (n0 < a.N) {
+    for (int s = s0; s < s1; ++s) {
+      const uint8_t* wp = a.qs + (size_t)(s * 128 + w * CH) * a.N + n0;
+      uint32_t q[CH];
 #pragma unroll
-      for (int m = 0; m < MT; ++m)
+      for (int r = 0; r < CH; ++r)
+        q[r] = __ldg(reinterpret_cast<const uint32_t*>(wp + (size_t)r * a.N));
+      const float4 stl = __ldg(reinterpret_cast<const float4*>(a.step + (size_t)(2 * s) * a.N + n0));
+      const float4 sth =
+          __ldg(reinterpret_cast<const float4*>(a.step + (size_t)(2 * s + 1) * a.N + n0));
+      const float sxl = a.sx[2 * s], sxh = a.sx[2 * s + 1];
+      const float sel[4] = {stl.x * sxl, stl.y * sxl, stl.z * sxl, stl.w * sxl};
+      const float seh[4] = {sth.x * sxh, sth.y * sxh, sth.z * sxh, sth.w * sxh};
+
+      uint32_t lo[CH / 4][4], hi[CH / 4][4];  // per column: 4 K values of each nibble plane
 #pragma unroll
-        for (int c = 0; c < 4; ++c) { ilo[m][c] = 0; ihi[m][c] = 0; }
-#pragma unroll 4
-      for (int r = 0; r < CH; r += 4) {
-        const uint8_t* w = qs + (size_t)(p0 + r) * N + n0;
-        uint32_t w0 = __ldg(reinterpret_cast<const uint32_t*>(w));
-        uint32_t w1 = __ldg(reinterpret_cast<const uint32_t*>(w + N));
-        uint32_t w2 = __ldg(reinterpret_cast<const uint32_t*>(w + 2 * (size_t)N));
-        uint32_t w3 = __ldg(reinterpret_cast<const uint32_t*>(w + 3 * (size_t)N));
+      for (int r4 = 0; r4 < CH / 4; ++r4) {
         uint32_t col[4];
-        transpose4x4(w0, w1, w2, w3, col);
-        int lo[4], hi[4];
+        transpose4x4(q[4 * r4], q[4 * r4 + 1], q[4 * r4 + 2], q[4 * r4 + 3], col);
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          lo[c] = (int)(col[c] & 0x0F0F0F0Fu);
-          hi[c] = (int)((col[c] >> 4) & 0x0F0F0F0Fu);
+          lo[r4][c] = col[c] & 0x0F0F0F0Fu;
+          hi[r4][c] = (col[c] >> 4) & 0x0F0F0F0Fu;
         }
+      }
+
+      const int klo = s * 256 + w * CH;  // K row of this warp's first lo nibble; hi: + 128
 #pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          if (m < rows) {
-            const int8_t* xr = xq + (size_t)(m0 + m) * Kp;
-            int xl = __ldg(reinterpret_cast<const int*>(xr + klo + r));
-            int xh = __ldg(reinterpret_cast<const int*>(xr + khi + r));
+      for (int m = 0; m < MT; ++m) {
+        if (m < rows) {
+          const int8_t* xr = a.xq + (size_t)(m0 + m) * a.Kp;
+          const int4 xl4 = __ldg(reinterpret_cast<const int4*>(xr + klo));
+          const int4 xh4 = __ldg(reinterpret_cast<const int4*>(xr + klo + 128));
+          const int xl[4] = {xl4.x, xl4.y, xl4.z, xl4.w}, xh[4] = {xh4.x, xh4.y, xh4.z, xh4.w};
 #pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              ilo[m][c] = __dp4a(lo[c], xl, ilo[m][c]);
-              ihi[m][c] = __dp4a(hi[c], xh, ihi[m][c]);
+          for (int c = 0; c < 4; ++c) {
+            int il = 0, ih = 0;
+#pragma unroll
+            for (int r4 = 0; r4 < CH / 4; ++r4) {
+              il = __dp4a((int)lo[r4][c], xl[r4], il);
+              ih = __dp4a((int)hi[r4][c], xh[r4], ih);
             }
+            acc[m][c] += (float)il * sel[c];
+            acc[m][c] += (float)ih * seh[c];
           }
         }
       }
-      const float sxl = sx[2 * slab], sxh = sx[2 * slab + 1];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float sel = step[(size_t)(2 * slab) * N + n0 + c] * sxl;
-        const float seh = step[(size_t)(2 * slab + 1) * N + n0 + c] * sxh;
+
+      if (s % KG == w) {  // the min terms of the slab's two half-slabs, once per block
+        const float4 ml = __ldg(reinterpret_cast<const float4*>(a.wmin + (size_t)(2 * s) * a.N + n0));
+        const float4 mh =
+            __ldg(reinterpret_cast<const float4*>(a.wmin + (size_t)(2 * s + 1) * a.N + n0));
+        const float wl[4] = {ml.x * sxl, ml.y * sxl, ml.z * sxl, ml.w * sxl};
+        const float wh[4] = {mh.x * sxh, mh.y * sxh, mh.z * sxh, mh.w * sxh};
 #pragma unroll
         for (int m = 0; m < MT; ++m) {
-          acc[m][c] += (float)ilo[m][c] * sel;
-          acc[m][c] += (float)ihi[m][c] * seh;
+          if (m < rows) {
+            const float gl = a.xsum[(size_t)(m0 + m) * nhalf + 2 * s];
+            const float gh = a.xsum[(size_t)(m0 + m) * nhalf + 2 * s + 1];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              acc[m][c] += gl * wl[c];
+              acc[m][c] += gh * wh[c];
+            }
+          }
         }
       }
     }
@@ -133,47 +169,82 @@ i4g_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xsum,
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) red[kg][m][tx * 4 + c] = acc[m][c];
+    for (int c = 0; c < 4; ++c) red[w][m][lane * 4 + c] = acc[m][c];
   __syncthreads();
 
+  float* part = reinterpret_cast<float*>(a.tickets + TICKETS);
   for (int i = threadIdx.x; i < MT * TN; i += THREADS) {
     const int m = i / TN, j = i % TN;
-    const int n = blockIdx.x * TN + j;
-    if (m >= rows || n >= N) continue;
-    float s = 0.f;
-    for (int g = 0; g < KG; ++g) s += red[g][m][j];
-    float mn = 0.f;
-    const float* xs = xsum + (size_t)(m0 + m) * nhalf;
-    for (int g = 0; g < nhalf; ++g) mn += xs[g] * (wmin[(size_t)g * N + n] * sx[g]);
-    out[(size_t)(m0 + m) * N + n] = s + mn;
+    const int n = ct * TN + j;
+    if (m >= rows || n >= a.N) continue;
+    float sum = 0.f;
+#pragma unroll
+    for (int g = 0; g < KG; ++g) sum += red[g][m][j];
+    if (a.splits == 1)
+      a.out[(size_t)(m0 + m) * a.N + n] = sum;
+    else
+      part[((size_t)sp * a.M + m0 + m) * a.N + n] = sum;
+  }
+  if (a.splits == 1) return;
+
+  // The last block of this (row tile, column tile) to finish sums the splits.
+  __shared__ bool last_s;
+  __threadfence();  // this block's partial is visible before its ticket
+  __syncthreads();
+  int* ticket = a.tickets + rt * gridDim.y + ct;
+  if (threadIdx.x == 0) last_s = atomicAdd(ticket, 1) == a.splits - 1;
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  if (threadIdx.x == 0) *ticket = 0;  // zero again for the next call
+  for (int i = threadIdx.x; i < MT * TN; i += THREADS) {
+    const int m = i / TN, j = i % TN;
+    const int n = ct * TN + j;
+    if (m >= rows || n >= a.N) continue;
+    const float* p = part + (size_t)(m0 + m) * a.N + n;
+    const size_t stride = (size_t)a.M * a.N;
+    float sum = 0.f;
+    for (int k = 0; k < a.splits; ++k) sum += __ldcg(p + k * stride);  // in split order
+    a.out[(size_t)(m0 + m) * a.N + n] = sum;
   }
 }
 
 template <int MT>
-void launch(const int8_t* xq, const float* xsum, const float* sx, const uint8_t* qs,
-            const float* step, const float* wmin, float* out, int M, int N, int Kp,
-            cudaStream_t stream) {
-  dim3 grid((N + TN - 1) / TN, (M + MT - 1) / MT);
-  i4g_kernel<MT><<<grid, THREADS, 0, stream>>>(xq, xsum, sx, qs, step, wmin, out, M, N, Kp);
+void launch(const Args& a, cudaStream_t stream) {
+  dim3 grid((a.M + MT - 1) / MT, (a.N + TN - 1) / TN, a.splits);
+  i4g_kernel<MT><<<grid, THREADS, 0, stream>>>(a);
 }
 
 }  // namespace
 
 // xq s8 [M, Kp]; xsum f32 [M, Kp/128]; sx f32 [Kp/128]; qs u8 [Kp/2, N];
-// step, wmin f32 [Kp/128, N]; out f32 [M, N]. Kp % 256 == 0, N % 4 == 0.
+// step, wmin f32 [Kp/128, N]; out f32 [M, N]; scratch: TICKETS int32
+// counters (zero on entry, left zero) followed by f32 partials
+// [splits, M, N], or null for one split. Kp % 256 == 0, N % 4 == 0; xq,
+// step and wmin 16-byte aligned. The cut (rows of x per block in {1, 4, 8},
+// slabs per split, splits) comes from the wrapper's plan; returns the launch
+// error (cudaErrorInvalidValue for a cut the kernel does not take).
 extern "C" int pi_i4g_matmul(const void* xq, const void* xsum, const void* sx,
                              const void* qs, const void* step, const void* wmin,
-                             void* out, int M, int N, int Kp, void* stream) {
+                             void* out, void* scratch, int M, int N, int Kp, int rows,
+                             int slabs, int splits, void* stream) {
+  const int nslab = Kp / 256;
+  const int row_tiles = (M + rows - 1) / rows, col_tiles = (N + TN - 1) / TN;
+  if (M <= 0 || Kp % 256 || N % 4 || slabs <= 0 || splits <= 0 ||
+      (splits - 1) * slabs >= nslab || splits * slabs < nslab ||
+      (splits > 1 && (scratch == nullptr || row_tiles * col_tiles > TICKETS)))
+    return (int)cudaErrorInvalidValue;
+  Args a{static_cast<const int8_t*>(xq), static_cast<const float*>(xsum),
+         static_cast<const float*>(sx),  static_cast<const uint8_t*>(qs),
+         static_cast<const float*>(step), static_cast<const float*>(wmin),
+         static_cast<float*>(out),       static_cast<int*>(scratch),
+         M, N, Kp, slabs, splits};
   auto s = static_cast<cudaStream_t>(stream);
-  auto a = static_cast<const int8_t*>(xq);
-  auto b = static_cast<const float*>(xsum);
-  auto c = static_cast<const float*>(sx);
-  auto w = static_cast<const uint8_t*>(qs);
-  auto st = static_cast<const float*>(step);
-  auto mn = static_cast<const float*>(wmin);
-  auto o = static_cast<float*>(out);
-  if (M <= 1) launch<1>(a, b, c, w, st, mn, o, M, N, Kp, s);
-  else if (M <= 4) launch<4>(a, b, c, w, st, mn, o, M, N, Kp, s);
-  else launch<8>(a, b, c, w, st, mn, o, M, N, Kp, s);
+  switch (rows) {
+    case 1: launch<1>(a, s); break;
+    case 4: launch<4>(a, s); break;
+    case 8: launch<8>(a, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

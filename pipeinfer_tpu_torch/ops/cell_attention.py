@@ -81,6 +81,14 @@ def plan(t: int, h: int, kvh: int, d: int, c: int) -> Plan:
     return Plan(rows, row_tiles, group_lanes, split, -(-c // split), blocks)
 
 
+def supports(d: int, c: int, h: int, kvh: int) -> bool:
+    """Whether the kernel takes head width D, c streamed cells and H heads
+    over KVH KV heads: a lane holds 8 columns of a row, at most 16 lanes
+    share a cell (D % 8 == 0, D <= 128), the cells come in BLOCK_C steps and
+    the heads in whole GQA groups. Other shapes take attend's dense path."""
+    return d % 8 == 0 and d <= 128 and c % BLOCK_C == 0 and h % kvh == 0
+
+
 def _cell_attention_plain(q, k_cache, v_cache, cell_pos, cell_seq, tok_pos, tok_seq, valid,
                           layer, scale, alibi, c):
     """Plain version of the kernel: the same masked scores, the softmax with
@@ -148,7 +156,7 @@ def cell_attention(
         return _cell_attention_plain(q, k_cache, v_cache, cell_pos, cell_seq, tok_pos,
                                      tok_seq, valid, layer, scale, alibi, c)
     n_l, n_words = k_cache.shape[0], cell_seq.shape[1]
-    if d % 8 or d > 128 or c % BLOCK_C or h % kvh:
+    if not supports(d, c, h, kvh):
         raise ValueError(f"cell_attention: unsupported shape D={d} C={c} H={h} KVH={kvh}")
     if (v_cache.shape != k_cache.shape or k_cache.shape[3] != d or not 0 <= layer < n_l
             or cell_pos.shape != (c_full,) or cell_seq.shape[0] != c_full

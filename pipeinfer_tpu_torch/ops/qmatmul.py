@@ -36,6 +36,8 @@ CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import dataclasses
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -361,16 +363,85 @@ def quantize_activations(x: torch.Tensor, kp: int, slab: int):
 # Bound on the H100: bytes. At decode M (1..33) each weight is used M times,
 # far under the ~295 operations per byte where the tensor cores would bind,
 # so the kernel must stream qs (0.5 B/weight) plus step and wmin (8 B per
-# 128 weights) once at the memory rate. Design (csrc/qmatmul_i4g.cu): one
-# block per 32-column tile and up to 8 rows of x; its 256 threads split K
-# into 32 interleaved chunks, so a 4096-deep matrix still gets 128 blocks;
-# each thread loads 4 packed rows x 4 columns as four 32-bit words,
-# transposes them in registers (__byte_perm) into per-column words of 4 K
-# values, splits lo/hi nibbles with two masks and feeds __dp4a against the
-# s8 activations. Integer partial sums are exact; each chunk's sums are
-# scaled by step * sx on the output side, the chunks are summed through
-# shared memory, and the affine min term xsum @ (wmin * sx) is added in the
-# epilogue. No cross-block reduction, so the output needs no atomics.
+# 128 weights) once at the memory rate. Design (csrc/qmatmul_i4g.cu): a
+# block of 8 warps takes a 128-column tile (a warp reads 128 contiguous
+# bytes of a packed row), up to 8 rows of x, and a range of whole 256-row
+# slabs; ``i4g_plan`` cuts K into such ranges (split-K) so that the grid
+# fills the card's waves of resident blocks even at N = 4096. Each warp
+# takes 16 packed rows of every slab of its range, transposes 4 x 4 byte
+# blocks in registers (__byte_perm) into per-column words of 4 K values,
+# splits lo/hi nibbles with two masks and feeds __dp4a against the s8
+# activations. Each slab's exact integer sums are scaled by step * sx into
+# f32 accumulators, and its affine min terms xsum * sx * wmin are added
+# into the same accumulators in the same pass. The splits meet in the
+# kernel: each writes an f32 partial, and the last block of each tile
+# (atomic ticket) sums them in split order, so the output is bitwise
+# reproducible (no atomics on it).
+
+I4G_TN = 128  # columns per block (TN in the kernel)
+I4G_BLOCKS_PER_SM = 2  # resident blocks per SM the plan counts (__launch_bounds__)
+I4G_TICKETS = 4096  # merge counters at the head of the scratch buffer (TICKETS)
+I4G_FILL = 0.9  # share of the grid's waves of resident blocks the splits should fill
+
+
+class I4gPlan(NamedTuple):
+    """How the i4g kernel cuts one call: ``rows`` rows of x per block in
+    ``row_tiles`` tiles, ``col_tiles`` tiles of I4G_TN columns, and the K
+    slabs in ``splits`` ranges of ``slabs`` whole slabs (the last may be
+    shorter); the grid is (row_tiles, col_tiles, splits), ``blocks`` in all."""
+
+    rows: int
+    row_tiles: int
+    col_tiles: int
+    splits: int
+    slabs: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=1024)
+def i4g_plan(m: int, n: int, kp: int, sms: int) -> I4gPlan:
+    """The cut for x [m, kp] times an [kp, n] i4g weight on a card with
+    `sms` SMs. The split count is the smallest that fills the waves of
+    resident blocks it makes (sms * I4G_BLOCKS_PER_SM a wave) to I4G_FILL or
+    more, since a wave the grid fills only in part costs as much as a full
+    one; else the one that fills them best. A grid that already fills its
+    waves keeps one split and needs no merge."""
+    rows = 1 if m == 1 else 4 if m <= 4 else 8
+    row_tiles = -(-m // rows)
+    col_tiles = -(-n // I4G_TN)
+    nslab = kp // I4G_SLAB
+    base = row_tiles * col_tiles
+    slots = sms * I4G_BLOCKS_PER_SM
+    max_splits = nslab if base <= I4G_TICKETS else 1  # a merge needs one counter per tile
+    best = None
+    for want in range(1, max_splits + 1):
+        slabs = -(-nslab // want)
+        splits = -(-nslab // slabs)
+        blocks = base * splits
+        fill = blocks / (slots * -(-blocks // slots))
+        if best is None or fill > best[0]:
+            best = (fill, splits, slabs)
+        if fill >= I4G_FILL:
+            break
+    _, splits, slabs = best
+    return I4gPlan(rows, row_tiles, col_tiles, splits, slabs, base * splits)
+
+
+_i4g_sms: dict = {}
+_i4g_scratch: dict = {}
+
+
+def _i4g_scratch_for(device: torch.device, n_part: int) -> torch.Tensor:
+    """The kernel's scratch, one buffer per (device, stream): I4G_TICKETS
+    int32 merge counters, which the kernel leaves zero (so they are zeroed
+    once), then room for n_part f32 partials. Calls on one stream never
+    run at the same time, so they share it."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _i4g_scratch.get(key)
+    if buf is None or buf.numel() < I4G_TICKETS + n_part:
+        buf = _i4g_scratch[key] = torch.zeros(I4G_TICKETS + max(n_part, 1 << 16),
+                                              dtype=torch.int32, device=device)
+    return buf
 
 
 def _i4g_plain(xq, xsum, sx, qs, step, wmin):
@@ -407,9 +478,17 @@ def i4g_matmul(xq, xsum, sx, qs, step, wmin) -> torch.Tensor:
         raise ValueError(f"i4g_matmul: shapes xq {tuple(xq.shape)} xsum {tuple(xsum.shape)} "
                          f"sx {tuple(sx.shape)} qs {tuple(qs.shape)} step {tuple(step.shape)} "
                          f"wmin {tuple(wmin.shape)} do not fit")
-    out = torch.empty(m, n, dtype=torch.float32, device=xq.device)
-    cuda_build.launch("qmatmul_i4g", "pi_i4g_matmul", xq, xsum, sx, qs, step, wmin, out, m, n, kp,
-                      count=i4g_matmul)
+    if xq.data_ptr() % 16 or step.data_ptr() % 16 or wmin.data_ptr() % 16 or qs.data_ptr() % 4:
+        raise ValueError("i4g_matmul: xq, step and wmin must be 16-byte and qs 4-byte aligned")
+    dev = xq.device
+    sms = _i4g_sms.get(dev)
+    if sms is None:
+        sms = _i4g_sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    cut = i4g_plan(m, n, kp, sms)
+    scratch = _i4g_scratch_for(dev, cut.splits * m * n) if cut.splits > 1 else None
+    out = torch.empty(m, n, dtype=torch.float32, device=dev)
+    cuda_build.launch("qmatmul_i4g", "pi_i4g_matmul", xq, xsum, sx, qs, step, wmin, out, scratch,
+                      m, n, kp, cut.rows, cut.slabs, cut.splits, count=i4g_matmul)
     return out
 
 

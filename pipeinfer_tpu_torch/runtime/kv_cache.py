@@ -25,6 +25,8 @@ import os as _os
 import numpy as np
 import torch
 
+from ..ops.cell_attention import cell_attention
+from ..ops.cell_attention import supports as cell_kernel_supports
 from ..ops.layers import apply_rope
 
 # Sequence-slot ceiling: 32 * SEQ_WORDS concurrent slots (PIPEINFER_SEQ_WORDS
@@ -345,18 +347,25 @@ def round_pool(n_cells: int) -> int:
     return -(-n_cells // 512) * 512
 
 
+def use_cell_kernel(t: int, h: int, kvh: int, d: int, c: int, hot: int, on_cuda: bool) -> bool:
+    """Whether attend sends T query rows of H heads (KVH KV heads of width
+    D) over a pool of c cells, streaming [0, hot) (0: all), to the flash
+    cell kernel: on a CUDA device, for long pools (small T, or any T at
+    >= FLASH_MIN_CELLS_BIG cells), and only for shapes the kernel takes."""
+    return (on_cuda and c >= FLASH_MIN_CELLS and c % 512 == 0
+            and (t <= FLASH_SMALL_T or c >= FLASH_MIN_CELLS_BIG)
+            and cell_kernel_supports(d, hot or c, h, kvh))
+
+
 def attend(q: torch.Tensor, cache: KVCache, layer: int, mask: torch.Tensor,
            tok_pos: torch.Tensor, tok_seq: torch.Tensor, valid: torch.Tensor, *,
            scale: float, alibi: torch.Tensor | None = None) -> torch.Tensor:
-    """Attention dispatcher: the flash cell kernel for long pools on a CUDA
-    device (small T, or any T at >= FLASH_MIN_CELLS_BIG cells), else the
-    dense masked SDPA over cells [0, hot)."""
+    """Attention dispatcher: the flash cell kernel where use_cell_kernel
+    says so, else the dense masked SDPA over cells [0, hot)."""
     c = cache.n_cells
     hot = cache.hot if (cache.hot and cache.hot < c) else 0
-    if (c >= FLASH_MIN_CELLS and c % 512 == 0 and q.is_cuda
-            and (q.shape[0] <= FLASH_SMALL_T or c >= FLASH_MIN_CELLS_BIG)):
-        from ..ops.cell_attention import cell_attention
-
+    t, h, d = q.shape
+    if use_cell_kernel(t, h, cache.k.shape[1], d, c, hot, q.is_cuda):
         return cell_attention(
             q.float().contiguous(), cache.k, cache.v, cache.pos, cache.seq,
             tok_pos.to(torch.int32), tok_seq.to(torch.int32), valid,
