@@ -112,7 +112,9 @@ I4G_SHAPES = {  # (N, K) of every 4-bit tensor of the 7B pair
     "wqkv": (12288, 4096), "wo": (4096, 4096), "wgu": (22016, 4096),
     "w_down": (4096, 11008), "output": (32000, 4096),
 }
-I8G_SHAPES = {"wo": (4096, 4096), "w_down": (4096, 11008)}
+I8G_SHAPES = {  # (N, K) of every tensor a Q6_K or Q8_0 7B file sends to i8g, and the toy's
+    **I4G_SHAPES, "toy_wo": (1024, 1024), "toy_w_down": (1024, 2816),
+}
 MS = (1, 9, 33)
 I4G_MS = (1, 8, 9, 33)  # 8: the verify bucket (draft 5 gives T = 6, padded to 8)
 MATMUL_RTOL = 1e-4  # of max|plain|: exact integer dots, f32 order of the scaled sums
@@ -129,12 +131,13 @@ def _rand_i4g(n, k, dev, g):
     return qs, step, wmin
 
 
-def _i4g_cut(Q, m: int, n: int, kp: int) -> dict | None:
-    """The cut the i4g wrapper makes for this call, for the log (None for a
-    tree from before ``i4g_plan``, so the script can time the older kernel)."""
+def _cut(Q, layout: str, m: int, n: int, kp: int) -> dict | None:
+    """The cut the i4g or i8g wrapper makes for this call, for the log (None
+    for a tree from before its ``i4g_plan`` or ``i8g_plan``, so the script
+    can time the older kernel)."""
     import torch
 
-    plan = getattr(Q, "i4g_plan", None)
+    plan = getattr(Q, f"{layout}_plan", None)
     if plan is None:
         return None
     return plan(m, n, kp, torch.cuda.get_device_properties(0).multi_processor_count)._asdict()
@@ -164,7 +167,7 @@ def phase_qmatmul(records: dict, details: list):
                 qt = Q.QuantTensor(planes[0][0], None, planes[0][1], planes[0][1][:0],
                                    qtype=None, shape=(n, k), layout="i8g")
             w_bf16 = Q.dequant_T(qt, torch.bfloat16)  # [K, N], for the yardstick only
-            for m in (I4G_MS if layout == "i4g" else MS):
+            for m in I4G_MS:
                 x = torch.randn(m, k, device=dev, generator=g)
                 if layout == "i4g":
                     kp = planes[0][0].shape[0] * 2
@@ -192,7 +195,7 @@ def phase_qmatmul(records: dict, details: list):
                     raise AssertionError(f"{name_k} {name} M={m}: max err {err} > "
                                          f"{MATMUL_RTOL} * {scale}")
                 worst = max(worst, err)
-                cut = _i4g_cut(Q, m, n, ins[0][0].shape[1]) if layout == "i4g" else None
+                cut = _cut(Q, layout, m, n, ins[0][0].shape[1])
                 it = iter(range(1 << 30))
                 k_ms = gpu_ms(lambda: kern(*ins[next(it) % len(ins)]), iters=20)
                 p_ms = gpu_ms(lambda: plain(*ins[0]), iters=3, warmup=1)
@@ -206,8 +209,9 @@ def phase_qmatmul(records: dict, details: list):
                 log(f"{name_k:11s} {name:7s} [{n}x{k}] M={m:2d}: err {err:.3g} "
                     f"(tol {MATMUL_RTOL * scale:.3g})  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms"
                     f"  bf16 GEMM {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})"
-                    + ("" if cut is None else f"  [{cut['splits']} splits of {cut['slabs']} "
-                       f"slabs, {cut['blocks']} blocks, row tile {cut['rows']}]"))
+                    + ("" if cut is None else f"  [{cut['splits']} splits of "
+                       + (f"{cut['slabs']} slabs" if layout == "i4g" else f"{cut['chunks']} chunks")
+                       + f", {cut['blocks']} blocks, row tile {cut['rows']}]"))
                 if name == "w_down" and m == 1:
                     rep[name_k] = row
             del planes, w_bf16

@@ -46,6 +46,7 @@ from ..quant.pack import FORMAT_INFO, PACK_GROUP, PackedWeight
 from . import cuda_build
 
 I8G_SLAB = 512  # K rows sharing one requant scale
+I8G_CHUNK = 128  # K rows of a chunk, the unit of the i8g kernel's split-K (CHUNK)
 I4G_SLAB = 256  # K rows per nibble-packed slab (two 128-row half-slabs)
 I4G_HALF = I4G_SLAB // 2
 K4_GROUP = 32  # rows of a k4 plane sharing one scale row
@@ -378,9 +379,9 @@ def quantize_activations(x: torch.Tensor, kp: int, slab: int):
 # (atomic ticket) sums them in split order, so the output is bitwise
 # reproducible (no atomics on it).
 
-I4G_TN = 128  # columns per block (TN in the kernel)
-I4G_BLOCKS_PER_SM = 2  # resident blocks per SM the plan counts (__launch_bounds__)
-I4G_TICKETS = 4096  # merge counters at the head of the scratch buffer (TICKETS)
+I4G_TN = 128  # columns per block (TN in the i4g and i8g kernels)
+I4G_BLOCKS_PER_SM = 2  # resident blocks per SM the plans count (__launch_bounds__ of both)
+I4G_TICKETS = 4096  # merge counters at the head of the scratch buffer (TICKETS of both)
 I4G_FILL = 0.9  # share of the grid's waves of resident blocks the splits should fill
 
 
@@ -398,49 +399,64 @@ class I4gPlan(NamedTuple):
     blocks: int
 
 
-@functools.lru_cache(maxsize=1024)
-def i4g_plan(m: int, n: int, kp: int, sms: int) -> I4gPlan:
-    """The cut for x [m, kp] times an [kp, n] i4g weight on a card with
-    `sms` SMs. The split count is the smallest that fills the waves of
-    resident blocks it makes (sms * I4G_BLOCKS_PER_SM a wave) to I4G_FILL or
-    more, since a wave the grid fills only in part costs as much as a full
-    one; else the one that fills them best. A grid that already fills its
-    waves keeps one split and needs no merge."""
+def _split_cut(m: int, n: int, units: int, sms: int) -> tuple[int, int, int, int, int, int]:
+    """(rows, row_tiles, col_tiles, splits, units per split, blocks) for x
+    [m, K] times a [K, n] weight whose K is `units` whole units (a split
+    takes a range of them) on a card with `sms` SMs. The split count is the
+    smallest that fills the waves of resident blocks it makes (sms *
+    I4G_BLOCKS_PER_SM a wave) to I4G_FILL or more, since a wave the grid
+    fills only in part costs as much as a full one; else the one that fills
+    them best. A grid that already fills its waves keeps one split and
+    needs no merge."""
     rows = 1 if m == 1 else 4 if m <= 4 else 8
     row_tiles = -(-m // rows)
     col_tiles = -(-n // I4G_TN)
-    nslab = kp // I4G_SLAB
     base = row_tiles * col_tiles
     slots = sms * I4G_BLOCKS_PER_SM
-    max_splits = nslab if base <= I4G_TICKETS else 1  # a merge needs one counter per tile
+    max_splits = units if base <= I4G_TICKETS else 1  # a merge needs one counter per tile
     best = None
     for want in range(1, max_splits + 1):
-        slabs = -(-nslab // want)
-        splits = -(-nslab // slabs)
+        per = -(-units // want)
+        splits = -(-units // per)
         blocks = base * splits
         fill = blocks / (slots * -(-blocks // slots))
         if best is None or fill > best[0]:
-            best = (fill, splits, slabs)
+            best = (fill, splits, per)
         if fill >= I4G_FILL:
             break
-    _, splits, slabs = best
-    return I4gPlan(rows, row_tiles, col_tiles, splits, slabs, base * splits)
+    _, splits, per = best
+    return rows, row_tiles, col_tiles, splits, per, base * splits
 
 
-_i4g_sms: dict = {}
-_i4g_scratch: dict = {}
+@functools.lru_cache(maxsize=1024)
+def i4g_plan(m: int, n: int, kp: int, sms: int) -> I4gPlan:
+    """The cut for x [m, kp] times an [kp, n] i4g weight on a card with
+    `sms` SMs: split-K over whole 256-row slabs (``_split_cut``)."""
+    return I4gPlan(*_split_cut(m, n, kp // I4G_SLAB, sms))
 
 
-def _i4g_scratch_for(device: torch.device, n_part: int) -> torch.Tensor:
-    """The kernel's scratch, one buffer per (device, stream): I4G_TICKETS
-    int32 merge counters, which the kernel leaves zero (so they are zeroed
-    once), then room for n_part f32 partials. Calls on one stream never
-    run at the same time, so they share it."""
+_sms: dict = {}
+_split_scratch: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    sms = _sms.get(device)
+    if sms is None:
+        sms = _sms[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms
+
+
+def _split_scratch_for(device: torch.device, n_part: int) -> torch.Tensor:
+    """The split-K scratch of the i4g and i8g kernels, one buffer per
+    (device, stream): I4G_TICKETS int32 merge counters, which both kernels
+    leave zero (so they are zeroed once), then room for n_part f32
+    partials. Calls on one stream never run at the same time, so they
+    share it."""
     key = (device, torch.cuda.current_stream(device).cuda_stream)
-    buf = _i4g_scratch.get(key)
+    buf = _split_scratch.get(key)
     if buf is None or buf.numel() < I4G_TICKETS + n_part:
-        buf = _i4g_scratch[key] = torch.zeros(I4G_TICKETS + max(n_part, 1 << 16),
-                                              dtype=torch.int32, device=device)
+        buf = _split_scratch[key] = torch.zeros(I4G_TICKETS + max(n_part, 1 << 16),
+                                                dtype=torch.int32, device=device)
     return buf
 
 
@@ -481,11 +497,8 @@ def i4g_matmul(xq, xsum, sx, qs, step, wmin) -> torch.Tensor:
     if xq.data_ptr() % 16 or step.data_ptr() % 16 or wmin.data_ptr() % 16 or qs.data_ptr() % 4:
         raise ValueError("i4g_matmul: xq, step and wmin must be 16-byte and qs 4-byte aligned")
     dev = xq.device
-    sms = _i4g_sms.get(dev)
-    if sms is None:
-        sms = _i4g_sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    cut = i4g_plan(m, n, kp, sms)
-    scratch = _i4g_scratch_for(dev, cut.splits * m * n) if cut.splits > 1 else None
+    cut = i4g_plan(m, n, kp, _sm_count(dev))
+    scratch = _split_scratch_for(dev, cut.splits * m * n) if cut.splits > 1 else None
     out = torch.empty(m, n, dtype=torch.float32, device=dev)
     cuda_build.launch("qmatmul_i4g", "pi_i4g_matmul", xq, xsum, sx, qs, step, wmin, out, scratch,
                       m, n, kp, cut.rows, cut.slabs, cut.splits, count=i4g_matmul)
@@ -509,11 +522,41 @@ def qmm_i4g(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 #
 # Replaces pipeinfer_tpu/ops/qmatmul.py::_i8g_kernel (wrapper _qmm_i8g_pallas).
-# Bound on the H100: bytes (1 B/weight plus 4 B per 512 weights for sw) at
-# decode M, for the same reason as i4g. Design (csrc/qmatmul_i8g.cu): the
-# i4g kernel's shape without the nibble split — 32-column tiles, K split
-# into 32-row chunks over 32 thread groups, 4x4 byte transposes feeding
-# __dp4a, each chunk's exact integer sums scaled by sw * sx of its slab.
+# Bound on the H100: bytes. At decode M each s8 weight (1 B, plus 4 B of sw
+# per 512 weights) is used M times, far under the ~295 operations per byte
+# where the tensor cores would bind, so the kernel must stream qs once at
+# the memory rate. Design (csrc/qmatmul_i8g.cu), the i4g kernel's without
+# the nibble split or the min term: a block of 8 warps takes a 128-column
+# tile (a warp load is one 128-byte line of one s8 row), up to 8 rows of x,
+# and a range of whole 128-row chunks (four to a 512-row slab); ``i8g_plan``
+# cuts K into such ranges (split-K) so that the grid fills the card's waves
+# of resident blocks even at N = 4096. In each chunk warp w takes rows
+# [16 w, 16 w + 16): it transposes 4 x 4 byte blocks of its 16 words in
+# registers (__byte_perm), loads the chunk's x rows (16 bytes a row), issues
+# the next chunk's 16 word loads, and only then feeds __dp4a, so the stream
+# goes on while 8 rows of x are summed; each chunk's exact integer sums are
+# scaled by sw * sx of its slab into f32 accumulators. The splits meet as
+# i4g's do: f32 partials summed in split order by the last block of each
+# tile (atomic ticket), so the output is bitwise reproducible.
+
+
+class I8gPlan(NamedTuple):
+    """How the i8g kernel cuts one call: as I4gPlan, with K in ``splits``
+    ranges of ``chunks`` whole 128-row chunks (the last may be shorter)."""
+
+    rows: int
+    row_tiles: int
+    col_tiles: int
+    splits: int
+    chunks: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=1024)
+def i8g_plan(m: int, n: int, kp: int, sms: int) -> I8gPlan:
+    """The cut for x [m, kp] times an [kp, n] i8g weight on a card with
+    `sms` SMs: split-K over whole 128-row chunks (``_split_cut``)."""
+    return I8gPlan(*_split_cut(m, n, kp // I8G_CHUNK, sms))
 
 
 def _i8g_plain(xq, sx, qs, sw):
@@ -544,9 +587,14 @@ def i8g_matmul(xq, sx, qs, sw) -> torch.Tensor:
     if kp % I8G_SLAB or qs.shape[0] != kp or n % 4 or sx.shape != (ns,) or sw.shape != (ns, n):
         raise ValueError(f"i8g_matmul: shapes xq {tuple(xq.shape)} sx {tuple(sx.shape)} "
                          f"qs {tuple(qs.shape)} sw {tuple(sw.shape)} do not fit")
-    out = torch.empty(m, n, dtype=torch.float32, device=xq.device)
-    cuda_build.launch("qmatmul_i8g", "pi_i8g_matmul", xq, sx, qs, sw, out, m, n, kp,
-                      count=i8g_matmul)
+    if xq.data_ptr() % 16 or sw.data_ptr() % 16 or qs.data_ptr() % 4:
+        raise ValueError("i8g_matmul: xq and sw must be 16-byte and qs 4-byte aligned")
+    dev = xq.device
+    cut = i8g_plan(m, n, kp, _sm_count(dev))
+    scratch = _split_scratch_for(dev, cut.splits * m * n) if cut.splits > 1 else None
+    out = torch.empty(m, n, dtype=torch.float32, device=dev)
+    cuda_build.launch("qmatmul_i8g", "pi_i8g_matmul", xq, sx, qs, sw, out, scratch, m, n, kp,
+                      cut.rows, cut.chunks, cut.splits, count=i8g_matmul)
     return out
 
 

@@ -57,6 +57,47 @@ def test_qmatmul_kernel_matches_plain(cuda, layout, qtype, k, m):
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5 * float(want.abs().max()))
 
 
+@pytest.mark.parametrize("m,n,qname", [(1, 4000, "Q6_K"), (8, 4000, "Q8_0"), (9, 1000, "Q6_K")])
+def test_i8g_split_k_matches_plain_and_repeats_bitwise(cuda, m, n, qname):
+    """The i8g kernel's split-K on the card: a cut with several splits and
+    a short last one (K picked for this card's SM count), a ragged last
+    column tile (N % 128 != 0), M = 8 (the verify bucket) and two row tiles
+    at M = 9. Two calls on the same inputs are bitwise equal: the last block
+    of each tile sums the splits' partials in split order."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    k = next(k for k in range(1024, 16385, 512)
+             if (c := Q.i8g_plan(m, n, k, sms)).splits > 1 and (k // Q.I8G_CHUNK) % c.chunks)
+    g = np.random.default_rng(m)
+    w = (g.standard_normal((n, k)) * 0.1).astype(np.float32)
+    qt = Q.to_device(pack.pack_array(w, GGMLQuantType[qname]), layout="i8g", device=cuda)
+    x = torch.from_numpy(g.standard_normal((m, k)).astype(np.float32)).to(cuda)
+    xq, sx = Q.quantize_activations(x, k, Q.I8G_SLAB)
+    before = Q.i8g_matmul.launches
+    got = Q.i8g_matmul(xq, sx, qt.qs, qt.scales)
+    again = Q.i8g_matmul(xq, sx, qt.qs, qt.scales)
+    assert Q.i8g_matmul.launches == before + 2
+    assert torch.equal(got, again)
+    want = Q._i8g_plain(xq.cpu(), sx.cpu(), qt.qs.cpu(), qt.scales.cpu())
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+def test_i8g_wrapper_rejects_misaligned_planes(cuda):
+    xq = torch.zeros(2, 1024, dtype=torch.int8, device=cuda)
+    sx = torch.ones(1, device=cuda)
+    qs = torch.zeros(512 * 64 + 4, dtype=torch.int8, device=cuda)
+    sw = torch.ones(65, device=cuda)
+    Q.i8g_matmul(xq[:, :512].contiguous(), sx, qs[:512 * 64].view(512, 64), sw[:64].view(1, 64))
+    with pytest.raises(ValueError, match="aligned"):
+        Q.i8g_matmul(xq.view(-1)[4:516].view(1, 512), sx, qs[:512 * 64].view(512, 64),
+                     sw[:64].view(1, 64))
+    with pytest.raises(ValueError, match="aligned"):
+        Q.i8g_matmul(xq[:1, :512].contiguous(), sx, qs[:512 * 64].view(512, 64),
+                     sw[1:].view(1, 64))
+    with pytest.raises(ValueError, match="aligned"):
+        Q.i8g_matmul(xq[:1, :512].contiguous(), sx, qs[2:2 + 512 * 64].view(512, 64),
+                     sw[:64].view(1, 64))
+
+
 EXACT_CASES = [("k_major", q) for q in ("Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q8_0", "Q2_K", "Q3_K",
                                          "Q4_K", "Q5_K", "Q6_K")] \
     + [("i8", q) for q in ("Q4_K", "Q6_K", "Q8_0")] + [("k4", q) for q in ("Q4_0", "Q4_K")]
