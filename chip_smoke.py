@@ -13,7 +13,8 @@ Phases, each failing the run (non-zero exit, no result line) on a miss:
    stated; its time, the plain version's, one PyTorch call's as a
    yardstick (timed here only, never used by the port) and the least time
    the card could take (bytes at 3.35 TB/s or operations at the peak rate
-   of their type, whichever is larger);
+   of their type, whichever is larger); the split-K matmuls (i4g, i8g,
+   i8) called twice on the same inputs must give bitwise equal outputs;
 4. the main path at full width: the llama-2-7B-shaped Q4_K bench pair
    (random weights from a seed, built into build/bench/ and reused), plain
    greedy decode and then PipeInferController in device-corrected greedy
@@ -39,6 +40,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import gc
+import hashlib
 import io
 import json
 import math
@@ -132,9 +134,9 @@ def _rand_i4g(n, k, dev, g):
 
 
 def _cut(Q, layout: str, m: int, n: int, kp: int) -> dict | None:
-    """The cut the i4g or i8g wrapper makes for this call, for the log (None
-    for a tree from before its ``i4g_plan`` or ``i8g_plan``, so the script
-    can time the older kernel)."""
+    """The cut the i4g, i8g or i8 wrapper makes for this call, for the log
+    (None for a tree from before its ``i4g_plan``, ``i8g_plan`` or
+    ``i8_plan``, so the script can time the older kernel)."""
     import torch
 
     plan = getattr(Q, f"{layout}_plan", None)
@@ -317,7 +319,9 @@ def _exact_inputs(layout: str, x, qt):
 
 def phase_exact(records: dict, details: list):
     """The k_major, i8 and k4 kernels against their plain versions at the
-    7B shapes (and k_major's other formats at one shape)."""
+    7B shapes (and k_major's other formats at one shape); i8 also at M = 8
+    (the verify bucket), with two calls on the same inputs bitwise equal
+    (its split-K merges in split order)."""
     import torch
 
     from pipeinfer_tpu_torch.ops import qmatmul as Q
@@ -334,13 +338,18 @@ def phase_exact(records: dict, details: list):
             qts = [one] + [_rand_exact(layout, qname, n, k, dev, g)
                            for _ in range(copies_for(one.nbytes()) - 1)]
             w_bf16 = Q.dequant_T(one, torch.bfloat16)  # [K, N], for the yardstick only
-            for m in MS:
+            for m in I4G_MS if layout == "i8" else MS:
                 x = torch.randn(m, k, device=dev, generator=g)
                 calls = [_exact_inputs(layout, x, qt) for qt in qts]
                 kern, plain, args, kw = calls[0]
                 got = kern(*args, **kw)
+                again = kern(*args, **kw) if layout == "i8" else got
                 want = plain(*args)
                 torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{kern.__name__} {qname} {name} M={m}: two calls on "
+                                         f"the same inputs differ by up to "
+                                         f"{(got - again).abs().max().item()}")
                 err = (got - want).abs().max().item()
                 scale = want.abs().max().item()
                 if not err <= MATMUL_RTOL * scale:
@@ -362,13 +371,16 @@ def phase_exact(records: dict, details: list):
                 if layout == "k4":  # K/2 byte rows and K/64 scale rows; the padding is never read
                     moved = [*moved[:2], moved[2][:k // 2], *(p[:k // 64] for p in moved[3:])]
                 b_ms, b_by = bound(nbytes(*moved) + m * n * 4, 2 * m * n * k, "bf16")
+                cut = _cut(Q, layout, m, n, k) if layout == "i8" else None
                 row = dict(kernel=key, layout=layout, qtype=qname, tensor=name, N=n, K=k, M=m,
                            max_abs_err=err, tol=MATMUL_RTOL * scale, ms=k_ms, plain_ms=p_ms,
-                           yardstick_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                           yardstick_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, plan=cut)
                 details.append(row)
                 log(f"{key:13s} {qname:4s} {name:7s} [{n}x{k}] M={m:2d}: err {err:.3g} "
                     f"(tol {MATMUL_RTOL * scale:.3g})  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms"
-                    f"  bf16 GEMM {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+                    f"  bf16 GEMM {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})"
+                    + ("" if cut is None else f"  [{cut['splits']} splits of {cut['chunks']} "
+                       f"chunks, {cut['blocks']} blocks, row tile {cut['rows']}]"))
                 if name == "w_down" and m == 1 and qname == EXACT_RECORDS[key][1]:
                     rep[key] = row
             del qts, one, w_bf16, calls
@@ -699,7 +711,8 @@ def run_cli_layout(label, layout, pair, n_predict, counters, kernel) -> dict:
     log(f"[{label}] cli.main and cli.speculative print the same {len(want)} characters "
         f"({t_main:.1f} s and {t_spec:.1f} s, loads included); launches {launches}")
     return dict(label=label, layout=layout, target=t_path, n_predict=n_predict, chars=len(want),
-                main_s=t_main, speculative_s=t_spec, launches=launches, text_tail=want[-120:])
+                main_s=t_main, speculative_s=t_spec, launches=launches, text_tail=want[-120:],
+                text_sha256=hashlib.sha256(want.encode()).hexdigest())
 
 
 def run_cli_engines(pair, n_predict) -> dict:
@@ -743,7 +756,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="kernels,main,i8g,cli",
                     help="comma list of kernels, main, i8g, cli (default: all); qmatmul "
-                         "runs only the i4g and i8g part of kernels")
+                         "runs only the i4g and i8g part of kernels, exact only the "
+                         "k_major, i8 and k4 part")
     ap.add_argument("--n-predict", type=int, default=128)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -787,8 +801,9 @@ def main() -> int:
     runs: list = []
     if phases & {"kernels", "qmatmul"}:
         phase_qmatmul(records, details)
-    if "kernels" in phases:
+    if phases & {"kernels", "exact"}:
         phase_exact(records, details)
+    if "kernels" in phases:
         phase_attention(records, details)
     if "main" in phases:
         runs.append(run_pair("7b_q4k", "7b", "Q4_K", 0.02, args.n_predict, counters))
@@ -815,6 +830,10 @@ def main() -> int:
             runs.append(run_cli_layout(label, layout, pair_7b, args.n_predict, counters, kernel))
             if kernel in records:
                 records[kernel]["launches"] = runs[-1]["launches"][kernel]
+        texts = {r["layout"]: r["text_sha256"] for r in runs if "text_sha256" in r}
+        if len(set(texts.values())) != 1:
+            raise AssertionError(f"the 7B CLI printed different text per layout: {texts}")
+        log(f"the 7B CLI printed the same text under {', '.join(texts)}")
         runs.append(run_cli_engines(cached_bench_pair(bench, "toy", "Q6_K", 0.02, log=log),
                                     args.n_predict))
 

@@ -32,28 +32,28 @@
 // - a chunk's integer sums are exact in s32; they are scaled by sw * sx of
 //   the chunk's slab (sw read as one 16-byte load per slab) into f32
 //   accumulators;
-// - the 8 warps are summed through shared memory in warp order. With one
-//   split the block writes the output. Otherwise it writes an f32 partial
-//   [M, N] tile for its split, takes a ticket (an atomic add on one counter
-//   per row and column tile), and the block that takes the last ticket sums
-//   the splits' partials in split order and sets the counter back to zero.
-//   No atomics touch the output: calls on the same inputs are bitwise equal.
+// - the 8 warps meet in warp order and the splits in split order, through
+//   the merge the i4g, i8g and i8 kernels share (split_merge.cuh): no
+//   atomics touch the output, so calls on the same inputs are bitwise equal.
 // Out of scope here: tensor-core MMA, TMA staging, and activation
 // quantization inside the kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "split_merge.cuh"
+
 namespace {
 
-constexpr int TN = 128;          // columns per block
-constexpr int KG = 8;            // warps per block, each a K group
+using split_merge::BLOCKS_PER_SM;
+using split_merge::KG;
+using split_merge::THREADS;
+using split_merge::TN;
+using split_merge::transpose4x4;
+
 constexpr int CH = 16;           // rows a warp takes of each chunk
 constexpr int CHUNK = KG * CH;   // K rows per chunk (I8G_CHUNK in ops/qmatmul.py)
 constexpr int SLAB = 512;        // K rows sharing one scale
-constexpr int THREADS = KG * 32;
-constexpr int BLOCKS_PER_SM = 2; // I4G_BLOCKS_PER_SM in ops/qmatmul.py
-constexpr int TICKETS = 4096;    // I4G_TICKETS: counters at the head of the scratch buffer
 
 struct Args {
   const int8_t* xq;      // [M, Kp]
@@ -65,22 +65,8 @@ struct Args {
   int M, N, Kp, chunks, splits;
 };
 
-__device__ __forceinline__ void transpose4x4(uint32_t r0, uint32_t r1, uint32_t r2,
-                                             uint32_t r3, uint32_t out[4]) {
-  // r_i: bytes (col0..col3) of row i -> out[c]: bytes (row0..row3) of col c
-  uint32_t t0 = __byte_perm(r0, r1, 0x5140);
-  uint32_t t1 = __byte_perm(r2, r3, 0x5140);
-  uint32_t t2 = __byte_perm(r0, r1, 0x7362);
-  uint32_t t3 = __byte_perm(r2, r3, 0x7362);
-  out[0] = __byte_perm(t0, t1, 0x5410);
-  out[1] = __byte_perm(t0, t1, 0x7632);
-  out[2] = __byte_perm(t2, t3, 0x5410);
-  out[3] = __byte_perm(t2, t3, 0x7632);
-}
-
 template <int MT>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) i8g_kernel(Args a) {
-  __shared__ float red[KG][MT][TN];
   const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
   const int rt = blockIdx.x, ct = blockIdx.y, sp = blockIdx.z;
   const int n0 = ct * TN + lane * 4;
@@ -144,53 +130,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) i8g_kernel(Args a) {
     }
   }
 
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) red[w][m][lane * 4 + c] = acc[m][c];
-  __syncthreads();
-
-  float* part = reinterpret_cast<float*>(a.tickets + TICKETS);
-  for (int i = threadIdx.x; i < MT * TN; i += THREADS) {
-    const int m = i / TN, j = i % TN;
-    const int n = ct * TN + j;
-    if (m >= rows || n >= a.N) continue;
-    float sum = 0.f;
-#pragma unroll
-    for (int g = 0; g < KG; ++g) sum += red[g][m][j];
-    if (a.splits == 1)
-      a.out[(size_t)(m0 + m) * a.N + n] = sum;
-    else
-      part[((size_t)sp * a.M + m0 + m) * a.N + n] = sum;
-  }
-  if (a.splits == 1) return;
-
-  // The last block of this (row tile, column tile) to finish sums the splits.
-  __shared__ bool last_s;
-  __threadfence();  // this block's partial is visible before its ticket
-  __syncthreads();
-  int* ticket = a.tickets + rt * gridDim.y + ct;
-  if (threadIdx.x == 0) last_s = atomicAdd(ticket, 1) == a.splits - 1;
-  __syncthreads();
-  if (!last_s) return;
-  __threadfence();
-  if (threadIdx.x == 0) *ticket = 0;  // zero again for the next call
-  for (int i = threadIdx.x; i < MT * TN; i += THREADS) {
-    const int m = i / TN, j = i % TN;
-    const int n = ct * TN + j;
-    if (m >= rows || n >= a.N) continue;
-    const float* p = part + (size_t)(m0 + m) * a.N + n;
-    const size_t stride = (size_t)a.M * a.N;
-    float sum = 0.f;
-    for (int k = 0; k < a.splits; ++k) sum += __ldcg(p + k * stride);  // in split order
-    a.out[(size_t)(m0 + m) * a.N + n] = sum;
-  }
-}
-
-template <int MT>
-void launch(const Args& a, cudaStream_t stream) {
-  dim3 grid((a.M + MT - 1) / MT, (a.N + TN - 1) / TN, a.splits);
-  i8g_kernel<MT><<<grid, THREADS, 0, stream>>>(a);
+  split_merge::finish<MT>(acc, a.out, a.tickets, a.M, a.N, m0, rows, a.splits);
 }
 
 }  // namespace
@@ -205,22 +145,11 @@ void launch(const Args& a, cudaStream_t stream) {
 extern "C" int pi_i8g_matmul(const void* xq, const void* sx, const void* qs, const void* sw,
                              void* out, void* scratch, int M, int N, int Kp, int rows,
                              int chunks, int splits, void* stream) {
-  const int nchunk = Kp / CHUNK;
-  const int row_tiles = (M + rows - 1) / rows, col_tiles = (N + TN - 1) / TN;
-  if (M <= 0 || Kp % SLAB || N % 4 || chunks <= 0 || splits <= 0 ||
-      (splits - 1) * chunks >= nchunk || splits * chunks < nchunk ||
-      (splits > 1 && (scratch == nullptr || row_tiles * col_tiles > TICKETS)))
-    return (int)cudaErrorInvalidValue;
+  if (Kp % SLAB) return (int)cudaErrorInvalidValue;
   Args a{static_cast<const int8_t*>(xq), static_cast<const float*>(sx),
          static_cast<const int8_t*>(qs), static_cast<const float*>(sw),
          static_cast<float*>(out),       static_cast<int*>(scratch),
          M, N, Kp, chunks, splits};
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (rows) {
-    case 1: launch<1>(a, s); break;
-    case 4: launch<4>(a, s); break;
-    case 8: launch<8>(a, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return split_merge::launch<Args>(i8g_kernel<1>, i8g_kernel<4>, i8g_kernel<8>, a, M, N, rows,
+                                   Kp / CHUNK, chunks, splits, scratch, stream);
 }

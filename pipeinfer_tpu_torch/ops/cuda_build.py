@@ -5,7 +5,8 @@ library with a plain C interface and loaded with ``ctypes`` (no PyTorch
 headers: a build takes seconds, not minutes). The build runs at first use,
 all sources in parallel, into ``build/cuda/`` at the root of the checkout
 (``PIPEINFER_CUDA_BUILD_DIR`` overrides it). Library names carry a hash of
-their source, so an edited kernel is rebuilt and a stale one never loads.
+their source and of the shared headers (``csrc/*.cuh``), so an edited
+kernel is rebuilt and a stale one never loads.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on machines with no ``nvcc``.
@@ -51,8 +52,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return build_dir() / f"lib{name}-{digest}.so"
 
 

@@ -46,7 +46,7 @@ from ..quant.pack import FORMAT_INFO, PACK_GROUP, PackedWeight
 from . import cuda_build
 
 I8G_SLAB = 512  # K rows sharing one requant scale
-I8G_CHUNK = 128  # K rows of a chunk, the unit of the i8g kernel's split-K (CHUNK)
+I8G_CHUNK = 128  # K rows of a chunk, the unit of the i8g and i8 kernels' split-K (CHUNK)
 I4G_SLAB = 256  # K rows per nibble-packed slab (two 128-row half-slabs)
 I4G_HALF = I4G_SLAB // 2
 K4_GROUP = 32  # rows of a k4 plane sharing one scale row
@@ -379,9 +379,9 @@ def quantize_activations(x: torch.Tensor, kp: int, slab: int):
 # (atomic ticket) sums them in split order, so the output is bitwise
 # reproducible (no atomics on it).
 
-I4G_TN = 128  # columns per block (TN in the i4g and i8g kernels)
-I4G_BLOCKS_PER_SM = 2  # resident blocks per SM the plans count (__launch_bounds__ of both)
-I4G_TICKETS = 4096  # merge counters at the head of the scratch buffer (TICKETS of both)
+I4G_TN = 128  # columns per block (TN in the i4g, i8g and i8 kernels)
+I4G_BLOCKS_PER_SM = 2  # resident blocks per SM the plans count (__launch_bounds__ of all three)
+I4G_TICKETS = 4096  # merge counters at the head of the scratch buffer (TICKETS of all three)
 I4G_FILL = 0.9  # share of the grid's waves of resident blocks the splits should fill
 
 
@@ -439,6 +439,15 @@ _sms: dict = {}
 _split_scratch: dict = {}
 
 
+def _aligned(name: str, **planes) -> None:
+    """Raise unless each plane given as (tensor or None, bytes) starts on
+    a multiple of that many bytes: the width of the kernel's widest load
+    of it."""
+    for key, (t, width) in planes.items():
+        if t is not None and t.data_ptr() % width:
+            raise ValueError(f"{name}: {key} must be {width}-byte aligned")
+
+
 def _sm_count(device: torch.device) -> int:
     sms = _sms.get(device)
     if sms is None:
@@ -447,9 +456,9 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _split_scratch_for(device: torch.device, n_part: int) -> torch.Tensor:
-    """The split-K scratch of the i4g and i8g kernels, one buffer per
-    (device, stream): I4G_TICKETS int32 merge counters, which both kernels
-    leave zero (so they are zeroed once), then room for n_part f32
+    """The split-K scratch of the i4g, i8g and i8 kernels, one buffer per
+    (device, stream): I4G_TICKETS int32 merge counters, which each kernel
+    leaves zero (so they are zeroed once), then room for n_part f32
     partials. Calls on one stream never run at the same time, so they
     share it."""
     key = (device, torch.cuda.current_stream(device).cuda_stream)
@@ -494,8 +503,7 @@ def i4g_matmul(xq, xsum, sx, qs, step, wmin) -> torch.Tensor:
         raise ValueError(f"i4g_matmul: shapes xq {tuple(xq.shape)} xsum {tuple(xsum.shape)} "
                          f"sx {tuple(sx.shape)} qs {tuple(qs.shape)} step {tuple(step.shape)} "
                          f"wmin {tuple(wmin.shape)} do not fit")
-    if xq.data_ptr() % 16 or step.data_ptr() % 16 or wmin.data_ptr() % 16 or qs.data_ptr() % 4:
-        raise ValueError("i4g_matmul: xq, step and wmin must be 16-byte and qs 4-byte aligned")
+    _aligned("i4g_matmul", xq=(xq, 16), step=(step, 16), wmin=(wmin, 16), qs=(qs, 4))
     dev = xq.device
     cut = i4g_plan(m, n, kp, _sm_count(dev))
     scratch = _split_scratch_for(dev, cut.splits * m * n) if cut.splits > 1 else None
@@ -587,8 +595,7 @@ def i8g_matmul(xq, sx, qs, sw) -> torch.Tensor:
     if kp % I8G_SLAB or qs.shape[0] != kp or n % 4 or sx.shape != (ns,) or sw.shape != (ns, n):
         raise ValueError(f"i8g_matmul: shapes xq {tuple(xq.shape)} sx {tuple(sx.shape)} "
                          f"qs {tuple(qs.shape)} sw {tuple(sw.shape)} do not fit")
-    if xq.data_ptr() % 16 or sw.data_ptr() % 16 or qs.data_ptr() % 4:
-        raise ValueError("i8g_matmul: xq and sw must be 16-byte and qs 4-byte aligned")
+    _aligned("i8g_matmul", xq=(xq, 16), sw=(sw, 16), qs=(qs, 4))
     dev = xq.device
     cut = i8g_plan(m, n, kp, _sm_count(dev))
     scratch = _split_scratch_for(dev, cut.splits * m * n) if cut.splits > 1 else None
@@ -613,24 +620,19 @@ def qmm_i8g(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
 # in f32 and rounded to bf16 inside the kernel, products accumulated in f32
 # ---------------------------------------------------------------------------
 #
-# All three kernels share the frame of csrc/qmatmul_i4g.cu: one block per
-# 32-column tile and up to 8 rows of x; its 256 threads split K into
-# 16-row chunks dealt to 32 thread groups, so a 4096-wide N still gets 128
-# blocks; each thread reads 4 adjacent columns with one 32-bit load per
-# plane row and transposes 4 rows x 4 columns in registers (__byte_perm);
-# the 32 groups' partial sums meet in shared memory (no atomics). Each
-# weight is dequantized exactly as the TPU kernel does it: w = s * q (- b)
-# with one f32 rounding per operation (no fused multiply-add), rounded to
-# bf16 (round to nearest even); the product with the bf16 activation is
-# exact in f32 and accumulates in f32. Bound on the H100: bytes, as for
-# i4g (decode M uses each weight M times, far under the ~295 operations
-# per byte where the tensor cores would bind).
-
-
-def _aligned(name: str, x: torch.Tensor, *planes) -> None:
-    """The kernels read x 8 bytes and the planes 4 bytes at a time."""
-    if x.data_ptr() % 8 or any(p is not None and p.data_ptr() % 4 for p in planes):
-        raise ValueError(f"{name}: x must be 8-byte and every plane 4-byte aligned")
+# The k_major and k4 kernels share one frame: one block per 32-column tile
+# and up to 8 rows of x; its 256 threads split K into 16-row chunks dealt
+# to 32 thread groups, so a 4096-wide N still gets 128 blocks; each thread
+# reads 4 adjacent columns with one 32-bit load per plane row and
+# transposes 4 rows x 4 columns in registers (__byte_perm); the 32 groups'
+# partial sums meet in shared memory (no atomics). The i8 kernel has the
+# i8g kernel's frame instead (see i8_matmul). Each weight is dequantized
+# exactly as the TPU kernel does it: w = s * q (- b) with one f32 rounding
+# per operation (no fused multiply-add), rounded to bf16 (round to nearest
+# even); the product with the bf16 activation is exact in f32 and
+# accumulates in f32. Bound on the H100: bytes, as for i4g (decode M uses
+# each weight M times, far under the ~295 operations per byte where the
+# tensor cores would bind).
 
 
 def _group_sums(x: torch.Tensor, group: int) -> torch.Tensor:
@@ -690,7 +692,8 @@ def kmajor_matmul(x, qs, qh, scales, bias, *, bits: int, group: int) -> torch.Te
         raise ValueError(f"kmajor_matmul: shapes x {tuple(x.shape)} qs {tuple(qs.shape)} "
                          f"qh {None if qh is None else tuple(qh.shape)} scales "
                          f"{tuple(scales.shape)} (bits {bits}, group {group}) do not fit")
-    _aligned("kmajor_matmul", x, qs, qh, scales, bias)
+    _aligned("kmajor_matmul", x=(x, 8), qs=(qs, 4), qh=(qh, 4), scales=(scales, 4),
+             bias=(bias, 4))
     out = torch.empty(m, n, dtype=torch.float32, device=x.device)
     cuda_build.launch("qmatmul_kmajor", "pi_kmajor_matmul", x, qs, qh, scales, bias, out,
                       m, n, k, bits, group, count=kmajor_matmul)
@@ -709,10 +712,32 @@ def qmm_kmajor(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
 
 # i8: replaces pipeinfer_tpu/ops/qmatmul.py::_i8_kernel (wrapper
 # _qmm_i8_pallas). Bound: bytes, 1 B/weight plus the scale and bias planes
-# (8 B per group of 32 or 16). The TPU kernel leaves the bias term
-# -xg @ B to an XLA dot outside; here each chunk that starts a group
-# subtracts xg[m, g] * b[g, n] into its partial sums (the same f32 term,
-# summed in another order), so the bias plane is read once, in the kernel.
+# (8 B per group of 32 or 16). Design (csrc/qmatmul_i8.cu), the i8g
+# kernel's frame: a block of 8 warps takes a 128-column tile (a warp load
+# is one 128-byte line of one s8 row), up to 8 rows of x, and a range of
+# whole 128-row chunks; ``i8_plan`` cuts the ceil(K / 128) chunks into such
+# ranges (split-K), the last chunk ragged where K % 128 != 0. In each chunk
+# warp w takes rows [16 w, 16 w + 16), which lie in one scale group: it
+# transposes 4 x 4 byte blocks in registers, loads the chunk's x rows,
+# issues the next chunk's 16 word loads and scale row, and only then
+# dequantizes and sums (x widened to f32 in shared memory). The
+# dequantization is bit-exact with bf16(fl(s * q)) with no int-to-float
+# conversion (a byte permute and an add make q a float; one packed
+# conversion rounds fl(s * q) to bf16 already widened). The TPU kernel
+# leaves the bias term -xg @ B to an XLA dot outside; here the warp that
+# holds a group's first row subtracts xg[m, g] * b[g, n] into its partial
+# sums (the same f32 term, summed in another order), so the bias plane is
+# read once, in the kernel. The splits meet as i8g's do: f32 partials
+# summed in split order by the last block of each tile (atomic ticket), so
+# the output is bitwise reproducible.
+
+
+@functools.lru_cache(maxsize=1024)
+def i8_plan(m: int, n: int, k: int, sms: int) -> I8gPlan:
+    """The cut for x [m, k] times a [k, n] i8 weight on a card with `sms`
+    SMs: split-K over ceil(k / 128) chunks (``_split_cut``); the last chunk
+    holds k % 128 rows where that is not 0."""
+    return I8gPlan(*_split_cut(m, n, -(-k // I8G_CHUNK), sms))
 
 
 def _i8_plain(x, xg, qs, scales, bias, group: int):
@@ -741,10 +766,13 @@ def i8_matmul(x, xg, qs, scales, bias, *, group: int) -> torch.Tensor:
     if bias is not None:
         planes.update(xg=(xg, torch.float32), bias=(bias, torch.float32))
     cuda_build.check_tensors("i8_matmul", **planes)
-    _aligned("i8_matmul", x, qs, scales, bias)
-    out = torch.empty(m, n, dtype=torch.float32, device=x.device)
-    cuda_build.launch("qmatmul_i8", "pi_i8_matmul", x, xg, qs, scales, bias, out, m, n, k, group,
-                      count=i8_matmul)
+    _aligned("i8_matmul", x=(x, 8), scales=(scales, 16), bias=(bias, 16), qs=(qs, 4))
+    dev = x.device
+    cut = i8_plan(m, n, k, _sm_count(dev))
+    scratch = _split_scratch_for(dev, cut.splits * m * n) if cut.splits > 1 else None
+    out = torch.empty(m, n, dtype=torch.float32, device=dev)
+    cuda_build.launch("qmatmul_i8", "pi_i8_matmul", x, xg, qs, scales, bias, out, scratch,
+                      m, n, k, group, cut.rows, cut.chunks, cut.splits, count=i8_matmul)
     return out
 
 
@@ -802,7 +830,8 @@ def k4_matmul(x, xg, qs, s_lo, s_hi, b_lo, b_hi) -> torch.Tensor:
             or any(p.shape != srows for p in (s_lo, s_hi, b_lo, b_hi))):
         raise ValueError(f"k4_matmul: shapes x {tuple(x.shape)} xg {tuple(xg.shape)} qs "
                          f"{tuple(qs.shape)} s_lo {tuple(s_lo.shape)} do not fit")
-    _aligned("k4_matmul", x, qs, s_lo, s_hi, b_lo, b_hi)
+    _aligned("k4_matmul", x=(x, 8), qs=(qs, 4), s_lo=(s_lo, 4), s_hi=(s_hi, 4), b_lo=(b_lo, 4),
+             b_hi=(b_hi, 4))
     out = torch.empty(m, n, dtype=torch.float32, device=x.device)
     cuda_build.launch("qmatmul_k4", "pi_k4_matmul", x, xg, qs, s_lo, s_hi, b_lo, b_hi, out,
                       m, n, k, count=k4_matmul)
@@ -831,7 +860,7 @@ def kernel_supported(qt: QuantTensor) -> bool:
     whole 256-row pack groups (K % 256), i8 whole scale groups (k4's K %
     256 holds by construction). The JAX package's test
     (_pallas_supported) also asks for N % 128; the port's kernels mask the
-    ragged edge of their 32-column tiles. Anything else, such as a
+    ragged edge of their column tiles. Anything else, such as a
     32003-token vocabulary head, takes the dense fallback, as it does in
     the JAX package."""
     n, k = qt.shape

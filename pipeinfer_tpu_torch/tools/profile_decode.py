@@ -8,12 +8,17 @@ For each of the two phases it first times the phase with the profiler off
 share (union of kernel intervals over the profiled wall time), kernel
 launches and kernel time per token, and the kernels that took the most
 device time. Needs one CUDA card; writes chiprun_out/profile_decode.json.
+It also prints, per token, the launches and ms of each of the port's own
+kernels, by source (csrc/<source>.cu, whose __global__ functions name
+them; all template instances of one summed); PIPEINFER_WEIGHT_LAYOUT
+picks the matmul layout, as for the CLIs.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -24,6 +29,7 @@ import numpy as np
 import torch
 
 from ..models import load_model
+from ..ops import cuda_build
 from ..runtime.context import Batch, InferenceContext
 from ..sampling.samplers import SamplingParams
 from ..spec.controller import PipeInferController
@@ -31,6 +37,23 @@ from ..spec.params import SpecParams
 from .benchpair import cached_bench_pair
 
 ROOT = Path(__file__).resolve().parents[2]
+_GLOBAL = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\((?:[^()]|\([^()]*\))*\)\s*)?"
+                     r"(\w+)\s*\(")
+
+
+def port_kernels() -> dict[str, str]:
+    """{kernel function name: the csrc source that defines it}, read from
+    the __global__ functions of csrc/*.cu."""
+    return {fn: src.stem for src in sorted(cuda_build.CSRC.glob("*.cu"))
+            for fn in _GLOBAL.findall(src.read_text())}
+
+
+def port_source(event: str, kernels: dict[str, str]) -> str | None:
+    """The csrc source of a profiler kernel event's name such as
+    ``void (anonymous namespace)::i8_kernel<1>((anonymous namespace)::Args)``,
+    or None for a kernel that is not the port's."""
+    m = re.search(r"::(\w+)[<(]", event)
+    return kernels.get(m.group(1)) if m else None
 
 
 def _kernel_stats(prof) -> tuple[float, int, dict[str, list[float]]]:
@@ -100,6 +123,7 @@ def main() -> int:
     report = dict(card=card, scale=args.scale, qtype=args.qtype, eps=args.eps, tokens=n,
                   torch=torch.__version__, cuda=torch.version.cuda, phases={})
     print(f"card: {card}", flush=True)
+    kernels = port_kernels()
     for name, setup in (("plain", plain), ("controller", controller)):
         setup()()  # warm-up
         wall, toks = timed(setup())
@@ -112,7 +136,14 @@ def main() -> int:
         ph = dict(tok_s=toks / wall, wall_s=wall, tokens=toks, profiled_wall_s=p_wall,
                   busy_share=busy / 1e6 / p_wall, kernels_per_token=n_k / p_toks,
                   kernel_ms_per_token=busy / 1e3 / p_toks,
-                  top=[dict(name=k, count=c, ms=us / 1e3) for k, (c, us) in top])
+                  top=[dict(name=k, count=c, ms=us / 1e3) for k, (c, us) in top],
+                  ours={})
+        for k, (c, us) in by_name.items():
+            src = port_source(k, kernels)
+            if src:
+                fam = ph["ours"].setdefault(src, dict(per_token=0.0, ms_per_token=0.0))
+                fam["per_token"] += c / p_toks
+                fam["ms_per_token"] += us / 1e3 / p_toks
         report["phases"][name] = ph
         print(f"[{name}] {toks} tokens at {ph['tok_s']:.1f} tok/s (profiler off); profiled: "
               f"device busy {100 * ph['busy_share']:.1f}% of {p_wall:.3f} s, "
@@ -120,6 +151,9 @@ def main() -> int:
               f"of kernel time per token", flush=True)
         for row in ph["top"]:
             print(f"    {row['ms']:9.3f} ms  {row['count']:6d}x  {row['name'][:100]}")
+        print("    per token: " + ", ".join(
+            f"{k} {v['per_token']:.1f} calls {v['ms_per_token']:.4f} ms"
+            for k, v in sorted(ph["ours"].items())), flush=True)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "profile_decode.json").write_text(json.dumps(report, indent=1))

@@ -98,6 +98,38 @@ def test_i8g_wrapper_rejects_misaligned_planes(cuda):
                      sw[:64].view(1, 64))
 
 
+@pytest.mark.parametrize("m,n,qname", [(1, 4000, "Q4_K"), (8, 4000, "Q8_0"), (9, 1000, "Q6_K")])
+def test_i8_split_k_matches_plain_and_repeats_bitwise(cuda, m, n, qname):
+    """The i8 kernel's split-K on the card: a cut with several splits and
+    a short last one, and a ragged last chunk (K % 128 != 0, so warps past
+    K skip it), K picked for this card's SM count; a ragged last column
+    tile (N % 128 != 0), M = 8 (the verify bucket) and two row tiles at
+    M = 9. Two calls on the same inputs are bitwise equal: the last block
+    of each tile sums the splits' partials in split order."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    k = next(k for k in range(1056, 16385, 32) if k % 128
+             and (c := Q.i8_plan(m, n, k, sms)).splits > 1 and -(-k // Q.I8G_CHUNK) % c.chunks)
+    g = np.random.default_rng(m)
+    group = 16 if qname == "Q6_K" else 32
+    lo, hi = {"Q4_K": (0, 16), "Q6_K": (0, 64), "Q8_0": (-127, 128)}[qname]
+    qs = torch.from_numpy(g.integers(lo, hi, (k, n)).astype(np.int8)).to(cuda)
+    scales = torch.from_numpy((g.random((k // group, n)) * 0.01 + 1e-3).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(g.standard_normal((m, k)).astype(np.float32)).to(cuda)
+    bias = xg = None
+    if qname != "Q8_0":
+        bias = torch.from_numpy((g.random((k // group, n)) * 0.08).astype(np.float32)).to(cuda)
+        xg = Q._group_sums(x, group)
+    xb = x.to(torch.bfloat16)
+    before = Q.i8_matmul.launches
+    got = Q.i8_matmul(xb, xg, qs, scales, bias, group=group)
+    again = Q.i8_matmul(xb, xg, qs, scales, bias, group=group)
+    assert Q.i8_matmul.launches == before + 2
+    assert torch.equal(got, again)
+    want = Q._i8_plain(*(None if t is None else t.cpu() for t in (xb, xg, qs, scales, bias)),
+                       group)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
 EXACT_CASES = [("k_major", q) for q in ("Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q8_0", "Q2_K", "Q3_K",
                                          "Q4_K", "Q5_K", "Q6_K")] \
     + [("i8", q) for q in ("Q4_K", "Q6_K", "Q8_0")] + [("k4", q) for q in ("Q4_0", "Q4_K")]
@@ -165,6 +197,18 @@ def test_exact_wrappers_reject_what_the_kernels_do_not_take(cuda):
         Q.i8_matmul(x, None, q8, s, s, group=32)
     with pytest.raises(ValueError, match="do not fit"):
         Q.i8_matmul(x, xg, q8, s, s, group=16)
+    # the i8 kernel reads x 8 bytes, scales and bias 16 bytes and qs 4 bytes at a time
+    Q.i8_matmul(x.reshape(-1)[4:516].reshape(1, 512), xg[:1], q8, s, s, group=32)
+    with pytest.raises(ValueError, match="x must be 8-byte"):
+        Q.i8_matmul(x.reshape(-1)[2:514].reshape(1, 512), xg[:1], q8, s, s, group=32)
+    s4 = torch.ones(16 * 64 + 1, device=cuda)[1:].view(16, 64)  # 4-byte aligned, not 16
+    with pytest.raises(ValueError, match="scales must be 16-byte"):
+        Q.i8_matmul(x, xg, q8, s4, s, group=32)
+    with pytest.raises(ValueError, match="bias must be 16-byte"):
+        Q.i8_matmul(x, xg, q8, s, s4, group=32)
+    q8o = torch.zeros(512 * 64 + 2, dtype=torch.int8, device=cuda)[2:].view(512, 64)
+    with pytest.raises(ValueError, match="qs must be 4-byte"):
+        Q.i8_matmul(x, xg, q8o, s, s, group=32)
     s4 = torch.ones(8, 64, device=cuda)
     Q.k4_matmul(x, xg, qs, s4, s4, s4, s4)
     with pytest.raises(ValueError, match="do not fit"):
