@@ -14,7 +14,8 @@ Phases, each failing the run (non-zero exit, no result line) on a miss:
    yardstick (timed here only, never used by the port) and the least time
    the card could take (bytes at 3.35 TB/s or operations at the peak rate
    of their type, whichever is larger); the split-K matmuls (i4g, i8g,
-   i8) called twice on the same inputs must give bitwise equal outputs;
+   i8, k_major) called twice on the same inputs must give bitwise equal
+   outputs;
 4. the main path at full width: the llama-2-7B-shaped Q4_K bench pair
    (random weights from a seed, built into build/bench/ and reused), plain
    greedy decode and then PipeInferController in device-corrected greedy
@@ -133,16 +134,12 @@ def _rand_i4g(n, k, dev, g):
     return qs, step, wmin
 
 
-def _cut(Q, layout: str, m: int, n: int, kp: int) -> dict | None:
-    """The cut the i4g, i8g or i8 wrapper makes for this call, for the log
-    (None for a tree from before its ``i4g_plan``, ``i8g_plan`` or
-    ``i8_plan``, so the script can time the older kernel)."""
-    import torch
-
-    plan = getattr(Q, f"{layout}_plan", None)
-    if plan is None:
-        return None
-    return plan(m, n, kp, torch.cuda.get_device_properties(0).multi_processor_count)._asdict()
+def _cut(kern) -> dict | None:
+    """The cut of the wrapper's last launch, for the log (None for k4, and
+    for a tree from before the wrappers kept it, so the script can time
+    the older kernel)."""
+    plan = getattr(kern, "last_plan", None)
+    return None if plan is None else plan._asdict()
 
 
 def phase_qmatmul(records: dict, details: list):
@@ -185,6 +182,7 @@ def phase_qmatmul(records: dict, details: list):
                     kern, plain, name_k = Q.i8g_matmul, Q._i8g_plain, "i8g_matmul"
                     ops, kind = 2 * m * n * kp, "int8"
                 got = kern(*ins[0])
+                cut = _cut(kern)
                 again = kern(*ins[0])
                 want = plain(*ins[0])
                 torch.cuda.synchronize()
@@ -197,7 +195,6 @@ def phase_qmatmul(records: dict, details: list):
                     raise AssertionError(f"{name_k} {name} M={m}: max err {err} > "
                                          f"{MATMUL_RTOL} * {scale}")
                 worst = max(worst, err)
-                cut = _cut(Q, layout, m, n, ins[0][0].shape[1])
                 it = iter(range(1 << 30))
                 k_ms = gpu_ms(lambda: kern(*ins[next(it) % len(ins)]), iters=20)
                 p_ms = gpu_ms(lambda: plain(*ins[0]), iters=3, warmup=1)
@@ -319,9 +316,9 @@ def _exact_inputs(layout: str, x, qt):
 
 def phase_exact(records: dict, details: list):
     """The k_major, i8 and k4 kernels against their plain versions at the
-    7B shapes (and k_major's other formats at one shape); i8 also at M = 8
-    (the verify bucket), with two calls on the same inputs bitwise equal
-    (its split-K merges in split order)."""
+    7B shapes (and k_major's other formats at one shape); k_major and i8
+    also at M = 8 (the verify bucket), with two calls on the same inputs
+    bitwise equal (their split-K merges in split order)."""
     import torch
 
     from pipeinfer_tpu_torch.ops import qmatmul as Q
@@ -338,12 +335,13 @@ def phase_exact(records: dict, details: list):
             qts = [one] + [_rand_exact(layout, qname, n, k, dev, g)
                            for _ in range(copies_for(one.nbytes()) - 1)]
             w_bf16 = Q.dequant_T(one, torch.bfloat16)  # [K, N], for the yardstick only
-            for m in I4G_MS if layout == "i8" else MS:
+            for m in MS if layout == "k4" else I4G_MS:
                 x = torch.randn(m, k, device=dev, generator=g)
                 calls = [_exact_inputs(layout, x, qt) for qt in qts]
                 kern, plain, args, kw = calls[0]
                 got = kern(*args, **kw)
-                again = kern(*args, **kw) if layout == "i8" else got
+                cut = _cut(kern)
+                again = got if layout == "k4" else kern(*args, **kw)
                 want = plain(*args)
                 torch.cuda.synchronize()
                 if not torch.equal(got, again):
@@ -371,7 +369,6 @@ def phase_exact(records: dict, details: list):
                 if layout == "k4":  # K/2 byte rows and K/64 scale rows; the padding is never read
                     moved = [*moved[:2], moved[2][:k // 2], *(p[:k // 64] for p in moved[3:])]
                 b_ms, b_by = bound(nbytes(*moved) + m * n * 4, 2 * m * n * k, "bf16")
-                cut = _cut(Q, layout, m, n, k) if layout == "i8" else None
                 row = dict(kernel=key, layout=layout, qtype=qname, tensor=name, N=n, K=k, M=m,
                            max_abs_err=err, tol=MATMUL_RTOL * scale, ms=k_ms, plain_ms=p_ms,
                            yardstick_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, plan=cut)
@@ -395,6 +392,8 @@ def phase_exact(records: dict, details: list):
             library_ms=None, yardstick_ms=r["yardstick_ms"],
             yardstick="torch.matmul bf16 on the dequantized weight",
             shape=f"M=1 N={r['N']} K={r['K']} (w_down, {qname})")
+        if r["plan"] is not None:
+            records[key]["plan"] = {f: r["plan"][f] for f in ("splits", "chunks", "blocks")}
 
 
 ATTN_TIMED = [  # (H, KVH, D, C, hot, T) timed against the plain version and SDPA

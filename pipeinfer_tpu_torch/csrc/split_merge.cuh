@@ -1,5 +1,6 @@
-// The frame and split-K merge shared by the i4g, i8g and i8 kernels
-// (qmatmul_i4g.cu, qmatmul_i8g.cu, qmatmul_i8.cu).
+// The frame and split-K merge shared by the i4g, i8g, i8 and k_major
+// kernels (qmatmul_i4g.cu, qmatmul_i8g.cu, qmatmul_i8.cu,
+// qmatmul_kmajor.cu).
 //
 // A block is KG warps over a TN-column tile; a lane takes 4 adjacent
 // columns, so a warp's word load is one 128-byte line of one weight row.
@@ -11,7 +12,7 @@
 // for its split, takes a ticket (an atomic add on one counter per row and
 // column tile), and the block that takes the last ticket sums the splits'
 // partials in split order and sets the counter back to zero. No atomics
-// touch the output: calls on the same inputs are bitwise equal. The three
+// touch the output: calls on the same inputs are bitwise equal. The four
 // kernels share one scratch buffer per stream (TICKETS counters, which
 // each leaves at zero, then the partials), and tests/test_torch_split_
 // merge.py holds the constants below to their Python mirrors.
@@ -96,12 +97,13 @@ __device__ __forceinline__ void finish(const float (&acc)[MT][4], float* out, in
 }
 
 // Launch kernel k1, k4 or k8 (rows of x per block 1, 4 or 8) over the
-// grid of this cut of `units` K units into `splits` ranges of `per`;
-// returns the launch error, or cudaErrorInvalidValue for a cut the
-// kernels do not take.
+// grid of this cut of `units` K units into `splits` ranges of `per`, with
+// `smem` bytes of dynamic shared memory a block; returns the launch error,
+// or cudaErrorInvalidValue for a cut the kernels do not take.
 template <class Args>
 int launch(void (*k1)(Args), void (*k4)(Args), void (*k8)(Args), const Args& a, int M, int N,
-           int rows, int units, int per, int splits, const void* scratch, void* stream) {
+           int rows, int units, int per, int splits, const void* scratch, void* stream,
+           int smem = 0) {
   void (*kernel)(Args) = rows == 1 ? k1 : rows == 4 ? k4 : rows == 8 ? k8 : nullptr;
   if (kernel == nullptr || M <= 0 || N % 4 || per <= 0 || splits <= 0)
     return (int)cudaErrorInvalidValue;
@@ -110,7 +112,7 @@ int launch(void (*k1)(Args), void (*k4)(Args), void (*k8)(Args), const Args& a, 
       (splits > 1 && (scratch == nullptr || row_tiles * col_tiles > TICKETS)))
     return (int)cudaErrorInvalidValue;
   dim3 grid(row_tiles, col_tiles, splits);
-  kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -379,9 +379,9 @@ def quantize_activations(x: torch.Tensor, kp: int, slab: int):
 # (atomic ticket) sums them in split order, so the output is bitwise
 # reproducible (no atomics on it).
 
-I4G_TN = 128  # columns per block (TN in the i4g, i8g and i8 kernels)
-I4G_BLOCKS_PER_SM = 2  # resident blocks per SM the plans count (__launch_bounds__ of all three)
-I4G_TICKETS = 4096  # merge counters at the head of the scratch buffer (TICKETS of all three)
+I4G_TN = 128  # columns per block (TN in the i4g, i8g, i8 and k_major kernels)
+I4G_BLOCKS_PER_SM = 2  # resident blocks per SM the plans count (__launch_bounds__ of all four)
+I4G_TICKETS = 4096  # merge counters at the head of the scratch buffer (TICKETS of all four)
 I4G_FILL = 0.9  # share of the grid's waves of resident blocks the splits should fill
 
 
@@ -456,11 +456,11 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _split_scratch_for(device: torch.device, n_part: int) -> torch.Tensor:
-    """The split-K scratch of the i4g, i8g and i8 kernels, one buffer per
-    (device, stream): I4G_TICKETS int32 merge counters, which each kernel
-    leaves zero (so they are zeroed once), then room for n_part f32
-    partials. Calls on one stream never run at the same time, so they
-    share it."""
+    """The split-K scratch of the i4g, i8g, i8 and k_major kernels, one
+    buffer per (device, stream): I4G_TICKETS int32 merge counters, which
+    each kernel leaves zero (so they are zeroed once), then room for
+    n_part f32 partials. Calls on one stream never run at the same time,
+    so they share it."""
     key = (device, torch.cuda.current_stream(device).cuda_stream)
     buf = _split_scratch.get(key)
     if buf is None or buf.numel() < I4G_TICKETS + n_part:
@@ -510,10 +510,12 @@ def i4g_matmul(xq, xsum, sx, qs, step, wmin) -> torch.Tensor:
     out = torch.empty(m, n, dtype=torch.float32, device=dev)
     cuda_build.launch("qmatmul_i4g", "pi_i4g_matmul", xq, xsum, sx, qs, step, wmin, out, scratch,
                       m, n, kp, cut.rows, cut.slabs, cut.splits, count=i4g_matmul)
+    i4g_matmul.last_plan = cut
     return out
 
 
 i4g_matmul.launches = 0
+i4g_matmul.last_plan = None  # the cut of its last launch
 
 
 def qmm_i4g(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
@@ -602,10 +604,12 @@ def i8g_matmul(xq, sx, qs, sw) -> torch.Tensor:
     out = torch.empty(m, n, dtype=torch.float32, device=dev)
     cuda_build.launch("qmatmul_i8g", "pi_i8g_matmul", xq, sx, qs, sw, out, scratch, m, n, kp,
                       cut.rows, cut.chunks, cut.splits, count=i8g_matmul)
+    i8g_matmul.last_plan = cut
     return out
 
 
 i8g_matmul.launches = 0
+i8g_matmul.last_plan = None  # the cut of its last launch
 
 
 def qmm_i8g(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
@@ -620,19 +624,19 @@ def qmm_i8g(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
 # in f32 and rounded to bf16 inside the kernel, products accumulated in f32
 # ---------------------------------------------------------------------------
 #
-# The k_major and k4 kernels share one frame: one block per 32-column tile
-# and up to 8 rows of x; its 256 threads split K into 16-row chunks dealt
-# to 32 thread groups, so a 4096-wide N still gets 128 blocks; each thread
-# reads 4 adjacent columns with one 32-bit load per plane row and
-# transposes 4 rows x 4 columns in registers (__byte_perm); the 32 groups'
-# partial sums meet in shared memory (no atomics). The i8 kernel has the
-# i8g kernel's frame instead (see i8_matmul). Each weight is dequantized
-# exactly as the TPU kernel does it: w = s * q (- b) with one f32 rounding
-# per operation (no fused multiply-add), rounded to bf16 (round to nearest
-# even); the product with the bf16 activation is exact in f32 and
-# accumulates in f32. Bound on the H100: bytes, as for i4g (decode M uses
-# each weight M times, far under the ~295 operations per byte where the
-# tensor cores would bind).
+# The k4 kernel keeps its first frame: one block per 32-column tile and up to
+# 8 rows of x; its 256 threads split K into 16-row chunks dealt to 32
+# thread groups; each thread reads 4 adjacent columns with one 32-bit load
+# per plane row and transposes 4 rows x 4 columns in registers
+# (__byte_perm); the 32 groups' partial sums meet in shared memory (no
+# atomics). The k_major and i8 kernels have the split-K frame of
+# csrc/split_merge.cuh instead (see kmajor_matmul and i8_matmul). Each
+# weight is dequantized exactly as the TPU kernel does it: w = s * q (- b)
+# with one f32 rounding per operation (no fused multiply-add), rounded to
+# bf16 (round to nearest even); the product with the bf16 activation is
+# exact in f32 and accumulates in f32. Bound on the H100: bytes, as for i4g
+# (decode M uses each weight M times, far under the ~295 operations per
+# byte where the tensor cores would bind).
 
 
 def _group_sums(x: torch.Tensor, group: int) -> torch.Tensor:
@@ -645,14 +649,38 @@ def _group_sums(x: torch.Tensor, group: int) -> torch.Tensor:
 # k_major: replaces pipeinfer_tpu/ops/qmatmul.py::_make_kernel (wrapper
 # _qmm_pallas). Bound: bytes, the packed planes (0.5 B/weight plus 8 B per
 # 32 weights of scale and bias for Q4_K; 1.25 B/weight for Q6_K). Design
-# (csrc/qmatmul_kmajor.cu): a chunk is 16 rows of the qs plane inside one
-# 256-row pack group, which hold 16 rows of each of the format's planes
-# (lo/hi nibbles, or the four 2-bit fields) and share one scale row per
-# plane; the qh rows of those elements are read and transposed alongside.
-# The per-format element mapping is a template on the bit width.
+# (csrc/qmatmul_kmajor.cu), the i8 kernel's frame: a block of 8 warps takes
+# a 128-column tile (a warp load is one 128-byte line of one plane row), up
+# to 8 rows of x, and a range of whole 128-row chunks of the qs plane;
+# ``kmajor_plan`` cuts the ceil(qs rows / 128) chunks into such ranges
+# (split-K). Warp w takes qs rows [16 w, 16 w + 16) of each chunk: 16
+# elements of each of the format's planes (lo/hi nibbles, or the four 2-bit
+# fields), which share one scale and one bias row per plane; their qh rows
+# are loaded beside them. At 2/3 bits an odd number of pack groups leaves
+# the last chunk half full, and the warps past the plane skip it. The warp
+# loads the chunk's x values, issues the next chunk's qs and qh words (and,
+# at one row of x, its scale and bias rows), and only then dequantizes and
+# sums (x widened to f32 in shared memory). The quant bits of 4 columns of
+# a row are gathered into the bytes of one word by word-wide masks and
+# shifts, and each byte becomes a float by a byte permute and an add, with
+# no int-to-float conversion; fl(fl(s * q) - b) is rounded to bf16 by one
+# packed conversion, the bias inside the rounding as on the TPU. The
+# splits meet as i8's do: f32 partials summed in split order by the last
+# block of each tile (atomic ticket), so the output is bitwise
+# reproducible.
 
 _QS_ROWS = {8: 1, 6: 2, 5: 2, 4: 2, 3: 4, 2: 4}  # elements per qs row
 _QH_DIV = {6: 4, 5: 8, 3: 8}  # K / qh rows
+KMAJOR_CHUNK = 128  # qs rows of a k_major chunk, the unit of its split-K (CHUNK)
+
+
+@functools.lru_cache(maxsize=1024)
+def kmajor_plan(m: int, n: int, k: int, bits: int, sms: int) -> I8gPlan:
+    """The cut for x [m, k] times a [k, n] k_major weight of `bits` bits on
+    a card with `sms` SMs: split-K over the ceil(qs rows / 128) chunks of
+    the qs plane (``_split_cut``); the last chunk holds 64 rows at 2/3 bits
+    where K has an odd number of 256-row pack groups."""
+    return I8gPlan(*_split_cut(m, n, -(-(k // _QS_ROWS[bits]) // KMAJOR_CHUNK), sms))
 
 
 def _kmajor_plain(x, qs, qh, scales, bias, bits: int, group: int):
@@ -669,7 +697,8 @@ def kmajor_matmul(x, qs, qh, scales, bias, *, bits: int, group: int) -> torch.Te
     """out f32 [M, N] = x @ bf16(s * q - b) with q unpacked from k_major
     planes. x bf16 [M, K], K % 256 == 0; qs u8 [K * b / 8, N] (s8 [K, N]
     for 8 bits); qh u8 [K/8, N] (3 and 5 bits), [K/4, N] (6 bits) or None;
-    scales f32 [K/G, N]; bias f32 [K/G, N], or None for Q8_0 (no bias)."""
+    scales f32 [K/G, N]; bias f32 [K/G, N], None exactly for 8 bits (Q8_0
+    has no bias)."""
     if not x.is_cuda:
         return _kmajor_plain(x, qs, qh, scales, bias, bits, group)
     planes = dict(x=(x, torch.bfloat16), qs=(qs, torch.int8 if bits == 8 else torch.uint8),
@@ -688,19 +717,25 @@ def kmajor_matmul(x, qs, qh, scales, bias, *, bits: int, group: int) -> torch.Te
                                                              else (qh_rows, n))
             or scales.shape != (k // group, n)
             or (bias is not None and bias.shape != scales.shape)
-            or (bias is None and bits != 8)):
+            or (bias is None) != (bits == 8)):
         raise ValueError(f"kmajor_matmul: shapes x {tuple(x.shape)} qs {tuple(qs.shape)} "
                          f"qh {None if qh is None else tuple(qh.shape)} scales "
                          f"{tuple(scales.shape)} (bits {bits}, group {group}) do not fit")
-    _aligned("kmajor_matmul", x=(x, 8), qs=(qs, 4), qh=(qh, 4), scales=(scales, 4),
-             bias=(bias, 4))
-    out = torch.empty(m, n, dtype=torch.float32, device=x.device)
+    _aligned("kmajor_matmul", x=(x, 8), qs=(qs, 4), qh=(qh, 4), scales=(scales, 16),
+             bias=(bias, 16))
+    dev = x.device
+    cut = kmajor_plan(m, n, k, bits, _sm_count(dev))
+    scratch = _split_scratch_for(dev, cut.splits * m * n) if cut.splits > 1 else None
+    out = torch.empty(m, n, dtype=torch.float32, device=dev)
     cuda_build.launch("qmatmul_kmajor", "pi_kmajor_matmul", x, qs, qh, scales, bias, out,
-                      m, n, k, bits, group, count=kmajor_matmul)
+                      scratch, m, n, k, bits, group, cut.rows, cut.chunks, cut.splits,
+                      count=kmajor_matmul)
+    kmajor_matmul.last_plan = cut
     return out
 
 
 kmajor_matmul.launches = 0
+kmajor_matmul.last_plan = None  # the cut of its last launch
 
 
 def qmm_kmajor(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
@@ -773,10 +808,12 @@ def i8_matmul(x, xg, qs, scales, bias, *, group: int) -> torch.Tensor:
     out = torch.empty(m, n, dtype=torch.float32, device=dev)
     cuda_build.launch("qmatmul_i8", "pi_i8_matmul", x, xg, qs, scales, bias, out, scratch,
                       m, n, k, group, cut.rows, cut.chunks, cut.splits, count=i8_matmul)
+    i8_matmul.last_plan = cut
     return out
 
 
 i8_matmul.launches = 0
+i8_matmul.last_plan = None  # the cut of its last launch
 
 
 def qmm_i8(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:

@@ -1,23 +1,26 @@
-"""Count the SASS instructions of the i8 kernel's main loop, by opcode.
+"""Count the SASS instructions of a split-K kernel's main loop, by opcode.
 
-    python -m pipeinfer_tpu_torch.tools.sass_count
+    python -m pipeinfer_tpu_torch.tools.sass_count [--kernel qmatmul_kmajor]
 
-Builds ``csrc/qmatmul_i8.cu`` with the port's nvcc flags and ``-Xptxas
--v`` into build/sass/, prints ptxas's register and spill lines,
+Builds ``csrc/<kernel>.cu`` (default ``qmatmul_i8``; also ``qmatmul_i4g``,
+``qmatmul_i8g`` and ``qmatmul_kmajor``) with the port's nvcc flags and
+``-Xptxas -v`` into build/sass/, prints ptxas's register and spill lines,
 disassembles the library with ``cuobjdump -sass`` and, for every instance
-of ``i8_kernel``, finds its largest loop (the span from a backward
-branch's target, a label or an address, to the branch, holding no EXIT)
-and counts the instructions in it by opcode (the mnemonic before its
-first dot), per weight: one pass of the chunk loop takes 16 rows x 4
-columns = 64 weights for one thread. These are static counts: a branch
-inside the loop (the bias rows, the prefetch of the next chunk) counts
-whether it is taken or not. Needs the CUDA toolkit; writes the SASS
-(``qmatmul_i8.sass``) and the counts (``qmatmul_i8.json``) beside the
-library in build/sass/.
+of the kernel's function (its name without ``qmatmul_``, then
+``_kernel``), finds its largest loop (the span from a backward branch's
+target, a label or an address, to the branch, holding no EXIT) and counts
+the instructions in it by opcode (the mnemonic before its first dot), per
+weight: one pass of the chunk loop takes 16 rows x 4 columns x the
+elements a row holds for one thread (i8 and i8g: 64 weights; i4g: 128;
+k_major: 64 x 1, 2 or 4 planes by the instance's bit width). These are
+static counts: a branch inside the loop (the bias rows, the prefetch of
+the next chunk) counts whether it is taken or not. Needs the CUDA
+toolkit; writes the SASS (``<kernel>.sass``) and the counts
+(``<kernel>.json``) beside the library in build/sass/.
 """
-
 from __future__ import annotations
 
+import argparse
 import json
 import re
 import shutil
@@ -27,11 +30,11 @@ from collections import Counter
 from pathlib import Path
 
 from ..ops import cuda_build
+from ..ops.qmatmul import _QS_ROWS
 
 ROOT = Path(__file__).resolve().parents[2]
-KERNEL = "qmatmul_i8"  # csrc/<KERNEL>.cu
-FUNCTION = "i8_kernel"  # the functions counted: those whose names hold this
-PER_ITER = 64.0  # weights one pass of the chunk loop takes for one thread
+KERNELS = ("qmatmul_i4g", "qmatmul_i8g", "qmatmul_i8", "qmatmul_kmajor")  # the split-frame ones
+CH = 16  # rows a warp takes of each chunk in their loops (CH in csrc)
 KINDS = ("I2F", "I2FP", "F2F", "F2FP", "PRMT", "FADD", "FMUL", "FFMA", "LOP3", "SHF", "IMAD",
          "IADD3", "LDG", "LDS", "LDGSTS", "BRA")
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
@@ -106,12 +109,29 @@ def loop_counts(lines: list[str]) -> tuple[Counter, int]:
     return ops, len(body)
 
 
-def main() -> int:
+def weights_per_pass(kernel: str, name: str) -> int:
+    """Weights one pass of the chunk loop takes for one thread in instance
+    `name` (mangled) of `kernel`: CH rows x 4 columns x the elements a row
+    holds (two nibbles at i4g; at k_major the planes of the instance's bit
+    width, its first template argument)."""
+    if kernel == "qmatmul_kmajor":
+        elems = _QS_ROWS[int(re.search(r"ILi(\d+)E", name).group(1))]
+    else:
+        elems = 2 if kernel == "qmatmul_i4g" else 1
+    return 4 * CH * elems
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", default="qmatmul_i8", choices=KERNELS, help="csrc/<KERNEL>.cu")
+    kernel = ap.parse_args(argv).kernel
+    function = f"{kernel.removeprefix('qmatmul_')}_kernel"
+    source = cuda_build.CSRC / f"{kernel}.cu"
     out_dir = ROOT / "build" / "sass"
     out_dir.mkdir(parents=True, exist_ok=True)
-    lib = out_dir / f"lib{KERNEL}.so"
+    lib = out_dir / f"lib{kernel}.so"
     cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(lib),
-           str(cuda_build.CSRC / f"{KERNEL}.cu")]
+           str(source)]
     built = subprocess.run(cmd, capture_output=True, text=True)
     if built.returncode != 0:
         print(built.stdout + built.stderr, file=sys.stderr)
@@ -121,22 +141,24 @@ def main() -> int:
             print(line.strip())
     sass = subprocess.run([_tool("cuobjdump"), "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
-    (out_dir / f"{KERNEL}.sass").write_text(sass)
+    (out_dir / f"{kernel}.sass").write_text(sass)
     report = {}
     for name, lines in functions(sass).items():
-        if FUNCTION not in name:
+        if function not in name:
             continue
         ops, n = loop_counts(lines)
-        per = {k: v / PER_ITER for k, v in sorted(ops.items())}
-        report[name] = dict(loop_instructions=n, weights=PER_ITER, counts=dict(ops),
+        per_iter = weights_per_pass(kernel, name)
+        per = {k: v / per_iter for k, v in sorted(ops.items())}
+        report[name] = dict(loop_instructions=n, weights=per_iter, counts=dict(ops),
                             per_weight=per)
-        print(f"{name}: loop of {n} instructions, {n / PER_ITER:.2f} per weight")
-        print("    " + "  ".join(f"{k} {ops.get(k, 0) / PER_ITER:.3f}" for k in KINDS))
+        print(f"{name}: loop of {n} instructions, {per_iter} weights, "
+              f"{n / per_iter:.2f} per weight")
+        print("    " + "  ".join(f"{k} {ops.get(k, 0) / per_iter:.3f}" for k in KINDS))
         rest = {k: v for k, v in ops.items() if k not in KINDS}
         if rest:
-            print("    other: " + "  ".join(f"{k} {v / PER_ITER:.3f}"
+            print("    other: " + "  ".join(f"{k} {v / per_iter:.3f}"
                                             for k, v in sorted(rest.items())))
-    (out_dir / f"{KERNEL}.json").write_text(json.dumps(report, indent=1))
+    (out_dir / f"{kernel}.json").write_text(json.dumps(report, indent=1))
     return 0 if report else 1
 
 

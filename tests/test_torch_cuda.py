@@ -22,6 +22,7 @@ from pipeinfer_tpu_torch.ops import cell_attention as CA
 from pipeinfer_tpu_torch.ops import cuda_build
 from pipeinfer_tpu_torch.ops import qmatmul as Q
 from pipeinfer_tpu_torch.quant import pack
+from pipeinfer_tpu_torch.quant.pack import FORMAT_INFO
 from pipeinfer_tpu_torch.runtime.context import Batch, InferenceContext, h2d, to_host_async
 from pipeinfer_tpu_torch.sampling.samplers import SamplingParams
 from pipeinfer_tpu_torch.spec.controller import PipeInferController
@@ -130,6 +131,48 @@ def test_i8_split_k_matches_plain_and_repeats_bitwise(cuda, m, n, qname):
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5 * float(want.abs().max()))
 
 
+@pytest.mark.parametrize("m,n,qname", [(1, 4000, "Q4_K"), (8, 4000, "Q8_0"), (9, 1000, "Q3_K"),
+                                         (1, 4000, "Q2_K"), (8, 4000, "Q6_K"), (33, 1000, "Q5_K")])
+def test_kmajor_split_k_matches_plain_and_repeats_bitwise(cuda, m, n, qname):
+    """The k_major kernel's split-K on the card: a cut with several splits
+    and a short last one, K picked for this card's SM count; at 2/3 bits an
+    odd number of pack groups, so the last chunk is half full and warps 4-7
+    skip it; Q8_0 with no bias; the qh planes of 5 and 6 bits; a ragged
+    last column tile (N % 128 != 0), M = 8 (the verify bucket) and several
+    row tiles at M = 9 and 33. Two calls on the same inputs are bitwise
+    equal: the last block of each tile sums the splits' partials in split
+    order."""
+    bits, group = FORMAT_INFO[GGMLQuantType[qname]]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+
+    def chunks(k):
+        return -(-(k // Q._QS_ROWS[bits]) // Q.KMAJOR_CHUNK)
+
+    k = next(k for k in range(1280, 16385, 256)
+             if (bits not in (2, 3) or (k // 256) % 2)
+             and (c := Q.kmajor_plan(m, n, k, bits, sms)).splits > 1 and chunks(k) % c.chunks)
+    g = np.random.default_rng(m)
+
+    def u8(rows):
+        return torch.from_numpy(g.integers(0, 256, (rows, n)).astype(np.uint8)).to(cuda)
+
+    qs = torch.from_numpy(g.integers(-128, 128, (k, n)).astype(np.int8)).to(cuda) if bits == 8 \
+        else u8(k // Q._QS_ROWS[bits])
+    qh = u8(k // Q._QH_DIV[bits]) if bits in Q._QH_DIV else None
+    scales = torch.from_numpy((g.random((k // group, n)) * 0.01 + 1e-3).astype(np.float32)).to(cuda)
+    bias = None if bits == 8 else \
+        torch.from_numpy((g.random((k // group, n)) * 0.08).astype(np.float32)).to(cuda)
+    xb = torch.from_numpy(g.standard_normal((m, k)).astype(np.float32)).to(cuda).to(torch.bfloat16)
+    before = Q.kmajor_matmul.launches
+    got = Q.kmajor_matmul(xb, qs, qh, scales, bias, bits=bits, group=group)
+    again = Q.kmajor_matmul(xb, qs, qh, scales, bias, bits=bits, group=group)
+    assert Q.kmajor_matmul.launches == before + 2
+    assert torch.equal(got, again)
+    want = Q._kmajor_plain(*(None if t is None else t.cpu() for t in (xb, qs, qh, scales, bias)),
+                           bits, group)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
 EXACT_CASES = [("k_major", q) for q in ("Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q8_0", "Q2_K", "Q3_K",
                                          "Q4_K", "Q5_K", "Q6_K")] \
     + [("i8", q) for q in ("Q4_K", "Q6_K", "Q8_0")] + [("k4", q) for q in ("Q4_0", "Q4_K")]
@@ -140,9 +183,10 @@ EXACT_COUNTERS = {"k_major": Q.kmajor_matmul, "i8": Q.i8_matmul, "k4": Q.k4_matm
 @pytest.mark.parametrize("m", [1, 5, 33])
 def test_exact_layout_kernels_match_plain(cuda, layout, qname, m):
     """The k_major, i8 and k4 kernels against their plain versions at a
-    ragged N (200: not a multiple of the 32-column tile) and K = 1280 (five
-    pack groups). Each weight is the same bf16 value on both sides, so
-    only the f32 summation order differs: atol 1e-5 of max|out|."""
+    ragged N (200: not a multiple of a 32- or 128-column tile) and K =
+    1280 (five pack groups). Each weight is the same bf16 value on both
+    sides, so only the f32 summation order differs: atol 1e-5 of
+    max|out|."""
     g = np.random.default_rng(m)
     w = (g.standard_normal((200, 1280)) * 0.1).astype(np.float32)
     qt = Q.to_device(pack.pack_array(w, GGMLQuantType[qname]), layout=layout, device=cuda)
@@ -190,6 +234,16 @@ def test_exact_wrappers_reject_what_the_kernels_do_not_take(cuda):
         Q.kmajor_matmul(x, qs, None, s, s, bits=5, group=32)  # 5 bits need qh
     with pytest.raises(ValueError, match="aligned"):
         Q.kmajor_matmul(x.reshape(-1)[2:514].reshape(1, 512), qs, None, s, s, bits=4, group=32)
+    q8k = torch.zeros(512, 64, dtype=torch.int8, device=cuda)
+    Q.kmajor_matmul(x, q8k, None, s, None, bits=8, group=32)
+    with pytest.raises(ValueError, match="do not fit"):
+        Q.kmajor_matmul(x, q8k, None, s, s, bits=8, group=32)  # Q8_0 has no bias
+    # the k_major kernel reads scales and bias 16 bytes at a time
+    s4k = torch.ones(16 * 64 + 1, device=cuda)[1:].view(16, 64)  # 4-byte aligned, not 16
+    with pytest.raises(ValueError, match="scales must be 16-byte"):
+        Q.kmajor_matmul(x, qs, None, s4k, s, bits=4, group=32)
+    with pytest.raises(ValueError, match="bias must be 16-byte"):
+        Q.kmajor_matmul(x, qs, None, s, s4k, bits=4, group=32)
     q8 = torch.zeros(512, 64, dtype=torch.int8, device=cuda)
     xg = torch.zeros(2, 16, device=cuda)
     Q.i8_matmul(x, xg, q8, s, s, group=32)

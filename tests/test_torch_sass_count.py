@@ -2,8 +2,11 @@
 a hand-written cuobjdump listing: functions are split by their headers,
 the largest loop is the span from a backward branch's target to the
 branch, and opcodes count by their mnemonic before the first dot,
-predicates dropped. (The tool itself needs the CUDA toolkit.)"""
+predicates dropped; the weights a loop pass takes, by kernel and bit
+width; and --kernel's choice of source. (The tool itself needs the CUDA
+toolkit.)"""
 
+from pipeinfer_tpu_torch.ops import cuda_build
 from pipeinfer_tpu_torch.tools import sass_count
 
 LISTING = """
@@ -50,3 +53,39 @@ def test_a_function_without_a_loop_counts_nothing():
     fns = sass_count.functions(LISTING)
     ops, n = sass_count.loop_counts(fns["_ZN12_GLOBAL__N_19other_kernelEv"])
     assert n == 0 and not ops
+
+
+def test_weights_per_pass_by_kernel():
+    """i8 and i8g: 16 rows x 4 columns; i4g: two nibbles a byte; k_major:
+    times the planes of the instance's bit width (its first template
+    argument)."""
+    for kernel, weights in (("qmatmul_i8", 64), ("qmatmul_i8g", 64), ("qmatmul_i4g", 128)):
+        fn = kernel.removeprefix("qmatmul_") + "_kernel"
+        name = f"_ZN12_GLOBAL__N_1{len(fn)}{fn}ILi8EEEvNS_4ArgsE"
+        assert sass_count.weights_per_pass(kernel, name) == weights
+    for bits, planes in {8: 1, 6: 2, 5: 2, 4: 2, 3: 4, 2: 4}.items():
+        name = f"_ZN12_GLOBAL__N_113kmajor_kernelILi{bits}ELi8EEEvNS_4ArgsE"
+        assert sass_count.weights_per_pass("qmatmul_kmajor", name) == 64 * planes
+
+
+def test_ch_is_the_kernels_rows_per_warp():
+    """The tool's CH is the constant of each kernel it counts."""
+    for kernel in sass_count.KERNELS:
+        text = (cuda_build.CSRC / f"{kernel}.cu").read_text()
+        assert f"constexpr int CH = {sass_count.CH};" in text, kernel
+
+
+def test_kernel_option_builds_that_source(monkeypatch):
+    """--kernel picks the source nvcc builds (the build fails here, so the
+    tool stops with 1 before disassembling)."""
+    calls = []
+
+    class Failed:
+        returncode, stdout, stderr = 1, "", "no toolkit"
+
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(sass_count.subprocess, "run", lambda cmd, **kw: calls.append(cmd) or Failed)
+    assert sass_count.main(["--kernel", "qmatmul_kmajor"]) == 1
+    assert calls[0][-1] == str(cuda_build.CSRC / "qmatmul_kmajor.cu")
+    assert sass_count.main([]) == 1
+    assert calls[1][-1] == str(cuda_build.CSRC / "qmatmul_i8.cu")

@@ -1,4 +1,4 @@
-"""The split-K frame the i4g, i8g and i8 kernels share
+"""The split-K frame the i4g, i8g, i8 and k_major kernels share
 (pipeinfer_tpu_torch/csrc/split_merge.cuh): its constants against their
 Python mirrors in ops/qmatmul.py, which the plans and the scratch buffer
 are cut by; every split-K kernel takes them from the header and defines
@@ -16,7 +16,7 @@ from pipeinfer_tpu_torch.ops import qmatmul as Q
 from pipeinfer_tpu_torch.tools import profile_decode
 
 HEADER = cuda_build.CSRC / "split_merge.cuh"
-SPLIT_KERNELS = ("qmatmul_i4g", "qmatmul_i8g", "qmatmul_i8")
+SPLIT_KERNELS = ("qmatmul_i4g", "qmatmul_i8g", "qmatmul_i8", "qmatmul_kmajor")
 SHARED = ("TN", "KG", "THREADS", "BLOCKS_PER_SM", "TICKETS")
 
 
@@ -31,6 +31,14 @@ def test_header_constants_match_the_plans():
     assert int(c["TICKETS"]) == Q.I4G_TICKETS
     # a chunk of the i8g and i8 kernels is KG warps of 16 rows
     assert int(c["KG"]) * 16 == Q.I8G_CHUNK
+
+
+def test_kmajor_chunk_matches_its_plan():
+    """k_major's chunk is KG warps of CH qs rows, the unit kmajor_plan cuts."""
+    kg = int(_constants(HEADER.read_text())["KG"])
+    c = _constants((cuda_build.CSRC / "qmatmul_kmajor.cu").read_text())
+    assert c["CHUNK"] == "KG * CH"
+    assert kg * int(c["CH"]) == Q.KMAJOR_CHUNK
 
 
 @pytest.mark.parametrize("name", SPLIT_KERNELS)
