@@ -14,8 +14,8 @@ Phases, each failing the run (non-zero exit, no result line) on a miss:
    yardstick (timed here only, never used by the port) and the least time
    the card could take (bytes at 3.35 TB/s or operations at the peak rate
    of their type, whichever is larger); the split-K matmuls (i4g, i8g,
-   i8, k_major) called twice on the same inputs must give bitwise equal
-   outputs;
+   i8, k_major, k4) called twice on the same inputs must give bitwise
+   equal outputs;
 4. the main path at full width: the llama-2-7B-shaped Q4_K bench pair
    (random weights from a seed, built into build/bench/ and reused), plain
    greedy decode and then PipeInferController in device-corrected greedy
@@ -118,7 +118,6 @@ I4G_SHAPES = {  # (N, K) of every 4-bit tensor of the 7B pair
 I8G_SHAPES = {  # (N, K) of every tensor a Q6_K or Q8_0 7B file sends to i8g, and the toy's
     **I4G_SHAPES, "toy_wo": (1024, 1024), "toy_w_down": (1024, 2816),
 }
-MS = (1, 9, 33)
 I4G_MS = (1, 8, 9, 33)  # 8: the verify bucket (draft 5 gives T = 6, padded to 8)
 MATMUL_RTOL = 1e-4  # of max|plain|: exact integer dots, f32 order of the scaled sums
 ATTN_ATOL = 1e-4  # f32 online vs one-pass softmax, summation order
@@ -135,9 +134,9 @@ def _rand_i4g(n, k, dev, g):
 
 
 def _cut(kern) -> dict | None:
-    """The cut of the wrapper's last launch, for the log (None for k4, and
-    for a tree from before the wrappers kept it, so the script can time
-    the older kernel)."""
+    """The cut of the wrapper's last launch, for the log (None for a tree
+    from before the wrapper kept it, so the script can time the older
+    kernel)."""
     plan = getattr(kern, "last_plan", None)
     return None if plan is None else plan._asdict()
 
@@ -316,9 +315,9 @@ def _exact_inputs(layout: str, x, qt):
 
 def phase_exact(records: dict, details: list):
     """The k_major, i8 and k4 kernels against their plain versions at the
-    7B shapes (and k_major's other formats at one shape); k_major and i8
-    also at M = 8 (the verify bucket), with two calls on the same inputs
-    bitwise equal (their split-K merges in split order)."""
+    7B shapes (and k_major's other formats at one shape), at M = 1, 8 (the
+    verify bucket), 9 and 33, with two calls on the same inputs bitwise
+    equal (their split-K merges in split order)."""
     import torch
 
     from pipeinfer_tpu_torch.ops import qmatmul as Q
@@ -335,13 +334,13 @@ def phase_exact(records: dict, details: list):
             qts = [one] + [_rand_exact(layout, qname, n, k, dev, g)
                            for _ in range(copies_for(one.nbytes()) - 1)]
             w_bf16 = Q.dequant_T(one, torch.bfloat16)  # [K, N], for the yardstick only
-            for m in MS if layout == "k4" else I4G_MS:
+            for m in I4G_MS:
                 x = torch.randn(m, k, device=dev, generator=g)
                 calls = [_exact_inputs(layout, x, qt) for qt in qts]
                 kern, plain, args, kw = calls[0]
                 got = kern(*args, **kw)
                 cut = _cut(kern)
-                again = got if layout == "k4" else kern(*args, **kw)
+                again = kern(*args, **kw)
                 want = plain(*args)
                 torch.cuda.synchronize()
                 if not torch.equal(got, again):

@@ -1,6 +1,6 @@
-// The frame and split-K merge shared by the i4g, i8g, i8 and k_major
+// The frame and split-K merge shared by the i4g, i8g, i8, k_major and k4
 // kernels (qmatmul_i4g.cu, qmatmul_i8g.cu, qmatmul_i8.cu,
-// qmatmul_kmajor.cu).
+// qmatmul_kmajor.cu, qmatmul_k4.cu).
 //
 // A block is KG warps over a TN-column tile; a lane takes 4 adjacent
 // columns, so a warp's word load is one 128-byte line of one weight row.
@@ -12,7 +12,7 @@
 // for its split, takes a ticket (an atomic add on one counter per row and
 // column tile), and the block that takes the last ticket sums the splits'
 // partials in split order and sets the counter back to zero. No atomics
-// touch the output: calls on the same inputs are bitwise equal. The four
+// touch the output: calls on the same inputs are bitwise equal. The five
 // kernels share one scratch buffer per stream (TICKETS counters, which
 // each leaves at zero, then the partials), and tests/test_torch_split_
 // merge.py holds the constants below to their Python mirrors.

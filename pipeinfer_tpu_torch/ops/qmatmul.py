@@ -379,9 +379,9 @@ def quantize_activations(x: torch.Tensor, kp: int, slab: int):
 # (atomic ticket) sums them in split order, so the output is bitwise
 # reproducible (no atomics on it).
 
-I4G_TN = 128  # columns per block (TN in the i4g, i8g, i8 and k_major kernels)
-I4G_BLOCKS_PER_SM = 2  # resident blocks per SM the plans count (__launch_bounds__ of all four)
-I4G_TICKETS = 4096  # merge counters at the head of the scratch buffer (TICKETS of all four)
+I4G_TN = 128  # columns per block (TN in the i4g, i8g, i8, k_major and k4 kernels)
+I4G_BLOCKS_PER_SM = 2  # resident blocks per SM the plans count (__launch_bounds__ of all five)
+I4G_TICKETS = 4096  # merge counters at the head of the scratch buffer (TICKETS of all five)
 I4G_FILL = 0.9  # share of the grid's waves of resident blocks the splits should fill
 
 
@@ -456,7 +456,7 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _split_scratch_for(device: torch.device, n_part: int) -> torch.Tensor:
-    """The split-K scratch of the i4g, i8g, i8 and k_major kernels, one
+    """The split-K scratch of the i4g, i8g, i8, k_major and k4 kernels, one
     buffer per (device, stream): I4G_TICKETS int32 merge counters, which
     each kernel leaves zero (so they are zeroed once), then room for
     n_part f32 partials. Calls on one stream never run at the same time,
@@ -624,19 +624,14 @@ def qmm_i8g(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
 # in f32 and rounded to bf16 inside the kernel, products accumulated in f32
 # ---------------------------------------------------------------------------
 #
-# The k4 kernel keeps its first frame: one block per 32-column tile and up to
-# 8 rows of x; its 256 threads split K into 16-row chunks dealt to 32
-# thread groups; each thread reads 4 adjacent columns with one 32-bit load
-# per plane row and transposes 4 rows x 4 columns in registers
-# (__byte_perm); the 32 groups' partial sums meet in shared memory (no
-# atomics). The k_major and i8 kernels have the split-K frame of
-# csrc/split_merge.cuh instead (see kmajor_matmul and i8_matmul). Each
+# The k_major, i8 and k4 kernels share the split-K frame of
+# csrc/split_merge.cuh (see kmajor_matmul, i8_matmul and k4_matmul). Each
 # weight is dequantized exactly as the TPU kernel does it: w = s * q (- b)
-# with one f32 rounding per operation (no fused multiply-add), rounded to
-# bf16 (round to nearest even); the product with the bf16 activation is
-# exact in f32 and accumulates in f32. Bound on the H100: bytes, as for i4g
-# (decode M uses each weight M times, far under the ~295 operations per
-# byte where the tensor cores would bind).
+# with one f32 rounding per operation of that formula (never one rounding
+# for s * q - b), rounded to bf16 (round to nearest even); the product
+# with the bf16 activation is exact in f32 and accumulates in f32. Bound
+# on the H100: bytes, as for i4g (decode M uses each weight M times, far
+# under the ~295 operations per byte where the tensor cores would bind).
 
 
 def _group_sums(x: torch.Tensor, group: int) -> torch.Tensor:
@@ -826,11 +821,36 @@ def qmm_i8(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
 
 # k4: replaces pipeinfer_tpu/ops/qmatmul.py::_k4_kernel (wrapper
 # _qmm_k4_pallas). Bound: bytes, 0.5 B/weight plus 8 B per 32 weights of
-# per-plane scale and bias. Design (csrc/qmatmul_k4.cu): a chunk is 16
-# rows of the byte plane, whose lo and hi nibbles are 16 elements each of
-# two K-halves of a 256-row group; the kernel reads x at those natural
-# positions, so x is never re-ordered into plane order. The bias term is
-# subtracted per plane group as in the i8 kernel.
+# per-plane scale and bias. Design (csrc/qmatmul_k4.cu), the i8 kernel's
+# frame: a block of 8 warps takes a 128-column tile (a warp load is one
+# 128-byte line of one byte-plane row), up to 8 rows of x, and a range of
+# whole 128-row chunks of the byte plane, each one 256-element pack group;
+# ``k4_plan`` cuts the K / 256 chunks into such ranges (split-K). Warp w
+# takes byte rows [16 w, 16 w + 16) of each chunk, whose lo and hi nibbles
+# are 16 elements each of the group's two K-halves and share one scale row
+# per plane; the kernel reads x at those natural positions, so x is never
+# re-ordered into plane order. It transposes 4 x 4 byte blocks in
+# registers, loads the chunk's x, issues the next chunk's 16 word loads
+# (and, at one row of x, its scale and bias rows), and only then
+# dequantizes and sums (x widened to f32 in shared memory). The
+# dequantization gives bf16(fl(s * q)) with no int-to-float conversion: a
+# mask and a byte permute make each nibble the float 2^23 + u (the hi
+# nibble kept in place, its scale prescaled by 2^-4), one FMA with -s 2^23
+# gives fl(s * q), one packed conversion rounds it to bf16 already
+# widened. The bias term is subtracted per plane group, as in the i8
+# kernel, by the warp that holds the group's first rows. The splits meet
+# as i8's do: f32 partials summed in split order by the last block of
+# each tile (atomic ticket), so the output is bitwise reproducible.
+
+K4_CHUNK = 128  # byte rows of a k4 chunk (one pack group), the unit of its split-K (CHUNK)
+
+
+@functools.lru_cache(maxsize=1024)
+def k4_plan(m: int, n: int, k: int, sms: int) -> I8gPlan:
+    """The cut for x [m, k] times a [k, n] k4 weight on a card with `sms`
+    SMs: split-K over the k / 256 chunks of the byte plane (two elements a
+    byte), each one pack group (``_split_cut``)."""
+    return I8gPlan(*_split_cut(m, n, k // (2 * K4_CHUNK), sms))
 
 
 def _k4_plain(x, xg, qs, s_lo, s_hi, b_lo, b_hi):
@@ -867,15 +887,20 @@ def k4_matmul(x, xg, qs, s_lo, s_hi, b_lo, b_hi) -> torch.Tensor:
             or any(p.shape != srows for p in (s_lo, s_hi, b_lo, b_hi))):
         raise ValueError(f"k4_matmul: shapes x {tuple(x.shape)} xg {tuple(xg.shape)} qs "
                          f"{tuple(qs.shape)} s_lo {tuple(s_lo.shape)} do not fit")
-    _aligned("k4_matmul", x=(x, 8), qs=(qs, 4), s_lo=(s_lo, 4), s_hi=(s_hi, 4), b_lo=(b_lo, 4),
-             b_hi=(b_hi, 4))
-    out = torch.empty(m, n, dtype=torch.float32, device=x.device)
+    _aligned("k4_matmul", x=(x, 16), qs=(qs, 4), s_lo=(s_lo, 16), s_hi=(s_hi, 16),
+             b_lo=(b_lo, 16), b_hi=(b_hi, 16))
+    dev = x.device
+    cut = k4_plan(m, n, k, _sm_count(dev))
+    scratch = _split_scratch_for(dev, cut.splits * m * n) if cut.splits > 1 else None
+    out = torch.empty(m, n, dtype=torch.float32, device=dev)
     cuda_build.launch("qmatmul_k4", "pi_k4_matmul", x, xg, qs, s_lo, s_hi, b_lo, b_hi, out,
-                      m, n, k, count=k4_matmul)
+                      scratch, m, n, k, cut.rows, cut.chunks, cut.splits, count=k4_matmul)
+    k4_matmul.last_plan = cut
     return out
 
 
 k4_matmul.launches = 0
+k4_matmul.last_plan = None  # the cut of its last launch
 
 
 def qmm_k4(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:

@@ -3,20 +3,20 @@
     python -m pipeinfer_tpu_torch.tools.sass_count [--kernel qmatmul_kmajor]
 
 Builds ``csrc/<kernel>.cu`` (default ``qmatmul_i8``; also ``qmatmul_i4g``,
-``qmatmul_i8g`` and ``qmatmul_kmajor``) with the port's nvcc flags and
-``-Xptxas -v`` into build/sass/, prints ptxas's register and spill lines,
-disassembles the library with ``cuobjdump -sass`` and, for every instance
-of the kernel's function (its name without ``qmatmul_``, then
-``_kernel``), finds its largest loop (the span from a backward branch's
-target, a label or an address, to the branch, holding no EXIT) and counts
-the instructions in it by opcode (the mnemonic before its first dot), per
-weight: one pass of the chunk loop takes 16 rows x 4 columns x the
-elements a row holds for one thread (i8 and i8g: 64 weights; i4g: 128;
-k_major: 64 x 1, 2 or 4 planes by the instance's bit width). These are
-static counts: a branch inside the loop (the bias rows, the prefetch of
-the next chunk) counts whether it is taken or not. Needs the CUDA
-toolkit; writes the SASS (``<kernel>.sass``) and the counts
-(``<kernel>.json``) beside the library in build/sass/.
+``qmatmul_i8g``, ``qmatmul_kmajor`` and ``qmatmul_k4``) with the port's
+nvcc flags and ``-Xptxas -v`` into build/sass/, prints ptxas's register
+and spill lines, disassembles the library with ``cuobjdump -sass`` and,
+for every instance of the kernel's function (its name without
+``qmatmul_``, then ``_kernel``), finds its largest loop (the span from a
+backward branch's target, a label or an address, to the branch, holding
+no EXIT) and counts the instructions in it by opcode (the mnemonic before
+its first dot), per weight: one pass of the chunk loop takes 16 rows x 4
+columns x the elements a row holds for one thread (i8 and i8g: 64
+weights; i4g and k4: 128; k_major: 64 x 1, 2 or 4 planes by the
+instance's bit width). These are static counts: a branch inside the
+loop (the bias rows, the prefetch of the next chunk) counts whether it is
+taken or not. Needs the CUDA toolkit; writes the SASS (``<kernel>.sass``)
+and the counts (``<kernel>.json``) beside the library in build/sass/.
 """
 from __future__ import annotations
 
@@ -33,7 +33,8 @@ from ..ops import cuda_build
 from ..ops.qmatmul import _QS_ROWS
 
 ROOT = Path(__file__).resolve().parents[2]
-KERNELS = ("qmatmul_i4g", "qmatmul_i8g", "qmatmul_i8", "qmatmul_kmajor")  # the split-frame ones
+KERNELS = ("qmatmul_i4g", "qmatmul_i8g", "qmatmul_i8", "qmatmul_kmajor",
+           "qmatmul_k4")  # the split-frame ones
 CH = 16  # rows a warp takes of each chunk in their loops (CH in csrc)
 KINDS = ("I2F", "I2FP", "F2F", "F2FP", "PRMT", "FADD", "FMUL", "FFMA", "LOP3", "SHF", "IMAD",
          "IADD3", "LDG", "LDS", "LDGSTS", "BRA")
@@ -112,12 +113,12 @@ def loop_counts(lines: list[str]) -> tuple[Counter, int]:
 def weights_per_pass(kernel: str, name: str) -> int:
     """Weights one pass of the chunk loop takes for one thread in instance
     `name` (mangled) of `kernel`: CH rows x 4 columns x the elements a row
-    holds (two nibbles at i4g; at k_major the planes of the instance's bit
-    width, its first template argument)."""
+    holds (two nibbles at i4g and k4; at k_major the planes of the
+    instance's bit width, its first template argument)."""
     if kernel == "qmatmul_kmajor":
         elems = _QS_ROWS[int(re.search(r"ILi(\d+)E", name).group(1))]
     else:
-        elems = 2 if kernel == "qmatmul_i4g" else 1
+        elems = 2 if kernel in ("qmatmul_i4g", "qmatmul_k4") else 1
     return 4 * CH * elems
 
 

@@ -173,6 +173,64 @@ def test_kmajor_split_k_matches_plain_and_repeats_bitwise(cuda, m, n, qname):
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5 * float(want.abs().max()))
 
 
+@pytest.mark.parametrize("m,n,qname", [(1, 4000, "Q4_K"), (8, 4000, "Q4_0"), (9, 1000, "Q4_1"),
+                                         (8, 200, "Q4_K"), (33, 200, "Q4_0")])
+def test_k4_split_k_matches_plain_and_repeats_bitwise(cuda, m, n, qname):
+    """The k4 kernel's split-K on the card: several splits, and at N = 4000
+    and 1000 a short last one (K picked for this card's SM count); a ragged
+    last column tile (N % 128 != 0; N = 200: two tiles, the second of 72
+    columns), a byte plane padded past K/2 rows with scale rows past K/64
+    (never read: they hold NaN here), M = 8 (the verify bucket) and
+    several row tiles at M = 9 and 33. Two calls on the same inputs are
+    bitwise equal: the last block of each tile sums the splits' partials
+    in split order."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    k = next(k for k in range(1280, 16385, 256)
+             if (c := Q.k4_plan(m, n, k, sms)).splits > 1 and (n < 1000 or (k // 256) % c.chunks))
+    g = np.random.default_rng(m)
+    r2 = -(-k // 2 // 256) * 256 + 256  # one more pack group of padding than to_device makes
+    qs = torch.from_numpy(g.integers(0, 256, (r2, n)).astype(np.uint8)).to(cuda)
+    planes = [torch.from_numpy((g.random((r2 // 32, n)) * scale).astype(np.float32)).to(cuda)
+              for scale in (0.01, 0.01, 0.08, 0.08)]  # s_lo, s_hi, b_lo, b_hi
+    for p in planes:
+        p[k // 64:] = float("nan")
+    x = torch.from_numpy(g.standard_normal((m, k)).astype(np.float32)).to(cuda)
+    args = (x.to(torch.bfloat16), Q._group_sums(x, Q.K4_GROUP), qs, *planes)
+    before = Q.k4_matmul.launches
+    got = Q.k4_matmul(*args)
+    again = Q.k4_matmul(*args)
+    assert Q.k4_matmul.launches == before + 2
+    assert Q.k4_matmul.last_plan == Q.k4_plan(m, n, k, sms) and Q.k4_matmul.last_plan.splits > 1
+    assert torch.equal(got, again)
+    want = Q._k4_plain(*(t.cpu() for t in args))
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("m", [1, 8])
+def test_k4_fused_projection_matches_plain(cuda, m):
+    """A fused k4 weight (concat_qt of three projections, as wq+wk+wv):
+    N = 200 + 128 + 72 = 400, its scale and bias planes concatenated along
+    N, through qmatmul on the card against the same fused weight on the
+    CPU and against its parts."""
+    g = np.random.default_rng(m)
+    parts = [Q.to_device(pack.pack_array((g.standard_normal((n, 1280)) * 0.1).astype(np.float32),
+                                         GGMLQuantType.Q4_K), layout="k4", device=cuda)
+             for n in (200, 128, 72)]
+    fused = Q.concat_qt(parts)
+    assert fused.layout == "k4" and fused.shape == (400, 1280)
+    x = torch.from_numpy(g.standard_normal((m, 1280)).astype(np.float32)).to(cuda)
+    before = Q.k4_matmul.launches
+    got = Q.qmatmul(x, fused)
+    assert Q.k4_matmul.launches == before + 1
+    cpu = Q.QuantTensor(fused.qs.cpu(), None, fused.scales.cpu(), fused.bias.cpu(), fused.qtype,
+                        fused.shape, "k4", fused.scales2.cpu(), fused.bias2.cpu())
+    want = Q.qmatmul(x.cpu(), cpu)
+    tol = 1e-5 * float(want.abs().max())
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=tol)
+    each = torch.cat([Q.qmatmul(x, p) for p in parts], dim=1)
+    torch.testing.assert_close(got, each, rtol=0, atol=tol)
+
+
 EXACT_CASES = [("k_major", q) for q in ("Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q8_0", "Q2_K", "Q3_K",
                                          "Q4_K", "Q5_K", "Q6_K")] \
     + [("i8", q) for q in ("Q4_K", "Q6_K", "Q8_0")] + [("k4", q) for q in ("Q4_0", "Q4_K")]

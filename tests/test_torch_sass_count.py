@@ -56,10 +56,11 @@ def test_a_function_without_a_loop_counts_nothing():
 
 
 def test_weights_per_pass_by_kernel():
-    """i8 and i8g: 16 rows x 4 columns; i4g: two nibbles a byte; k_major:
-    times the planes of the instance's bit width (its first template
-    argument)."""
-    for kernel, weights in (("qmatmul_i8", 64), ("qmatmul_i8g", 64), ("qmatmul_i4g", 128)):
+    """i8 and i8g: 16 rows x 4 columns; i4g and k4: two nibbles a byte;
+    k_major: times the planes of the instance's bit width (its first
+    template argument)."""
+    for kernel, weights in (("qmatmul_i8", 64), ("qmatmul_i8g", 64), ("qmatmul_i4g", 128),
+                            ("qmatmul_k4", 128)):
         fn = kernel.removeprefix("qmatmul_") + "_kernel"
         name = f"_ZN12_GLOBAL__N_1{len(fn)}{fn}ILi8EEEvNS_4ArgsE"
         assert sass_count.weights_per_pass(kernel, name) == weights

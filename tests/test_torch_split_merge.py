@@ -1,4 +1,4 @@
-"""The split-K frame the i4g, i8g, i8 and k_major kernels share
+"""The split-K frame the i4g, i8g, i8, k_major and k4 kernels share
 (pipeinfer_tpu_torch/csrc/split_merge.cuh): its constants against their
 Python mirrors in ops/qmatmul.py, which the plans and the scratch buffer
 are cut by; every split-K kernel takes them from the header and defines
@@ -16,7 +16,7 @@ from pipeinfer_tpu_torch.ops import qmatmul as Q
 from pipeinfer_tpu_torch.tools import profile_decode
 
 HEADER = cuda_build.CSRC / "split_merge.cuh"
-SPLIT_KERNELS = ("qmatmul_i4g", "qmatmul_i8g", "qmatmul_i8", "qmatmul_kmajor")
+SPLIT_KERNELS = ("qmatmul_i4g", "qmatmul_i8g", "qmatmul_i8", "qmatmul_kmajor", "qmatmul_k4")
 SHARED = ("TN", "KG", "THREADS", "BLOCKS_PER_SM", "TICKETS")
 
 
@@ -39,6 +39,16 @@ def test_kmajor_chunk_matches_its_plan():
     c = _constants((cuda_build.CSRC / "qmatmul_kmajor.cu").read_text())
     assert c["CHUNK"] == "KG * CH"
     assert kg * int(c["CH"]) == Q.KMAJOR_CHUNK
+
+
+def test_k4_chunk_matches_its_plan():
+    """k4's chunk is KG warps of CH byte rows, the unit k4_plan cuts: one
+    256-element pack group, two elements a byte."""
+    kg = int(_constants(HEADER.read_text())["KG"])
+    c = _constants((cuda_build.CSRC / "qmatmul_k4.cu").read_text())
+    assert c["CHUNK"] == "KG * CH"
+    assert kg * int(c["CH"]) == Q.K4_CHUNK
+    assert 2 * Q.K4_CHUNK == Q.PACK_GROUP
 
 
 @pytest.mark.parametrize("name", SPLIT_KERNELS)
