@@ -29,7 +29,22 @@ Phases, each failing the run (non-zero exit, no result line) on a miss:
    layout's kernel and the cell-attention kernel must have launched in the
    speculative run; on the toy pair under the default layout, `--engine
    sync` and the default `-np 3` print the same text as `cli.main`, and so
-   does one `python -m pipeinfer_tpu_torch.cli.speculative` subprocess.
+   does one `python -m pipeinfer_tpu_torch.cli.speculative` subprocess;
+7. serve, on the 7B Q4_K pair: i4g and i8g at the batched loops' M = 4
+   and 36 (wqkv, w_down) and cell attention at T = 4 with its rows on
+   sequence slots 60-63 (63 is the sign bit of an int32 seq word), each
+   against its plain version; then the server of
+   `pipeinfer_tpu_torch.serving.server.serve(..., draft_path=...,
+   device_lanes=4)` on port 0, whose loaded weights also drive
+   DeviceLoopEngine (its stream == plain greedy, tok/s beside plain and
+   the controller) and BatchedDeviceLoop (4 prompts, each stream == its
+   own plain greedy stream); then 6 concurrent /completion requests (4
+   greedy, 1 with repeat_penalty 1.1, 1 greedy joining after the first
+   streamed tokens): greedy content == the text `cli.main` generates for
+   the prompt, the penalty request == plain decoding under its sampler, no
+   `error`, both engines served, the engine thread alive; last,
+   DeviceLoopEngine on the toy Q6_K pair (every matmul through i8g, as a
+   Q4_K_M file's Q6_K tensors) against plain greedy.
 
 The last lines printed are the card line, one JSON line with a record per
 kernel, and {"ok": true, "device": {...}}. Details of every shape go to
@@ -119,6 +134,10 @@ I8G_SHAPES = {  # (N, K) of every tensor a Q6_K or Q8_0 7B file sends to i8g, an
     **I4G_SHAPES, "toy_wo": (1024, 1024), "toy_w_down": (1024, 2816),
 }
 I4G_MS = (1, 8, 9, 33)  # 8: the verify bucket (draft 5 gives T = 6, padded to 8)
+# the batched loops' rows: 4 lanes' draft steps, and their target pass at
+# the server's --n-draft 8: 4 * (8 + 1)
+SERVE_MS = (4, 36)
+SERVE_SHAPES = ("wqkv", "w_down")
 MATMUL_RTOL = 1e-4  # of max|plain|: exact integer dots, f32 order of the scaled sums
 ATTN_ATOL = 1e-4  # f32 online vs one-pass softmax, summation order
 
@@ -131,6 +150,59 @@ def _rand_i4g(n, k, dev, g):
     step = torch.rand(kp // 128, n, device=dev, generator=g) * 0.01 + 1e-3
     wmin = -torch.rand(kp // 128, n, device=dev, generator=g) * 0.08
     return qs, step, wmin
+
+
+def _split_planes(layout: str, n: int, k: int, dev, g, copies: int = 1) -> list:
+    """`copies` random weight planes of an i4g or i8g tensor [N, K]."""
+    import torch
+
+    if layout == "i4g":
+        return [_rand_i4g(n, k, dev, g) for _ in range(copies)]
+    kp = -(-k // 512) * 512
+    return [(torch.randint(-127, 128, (kp, n), dtype=torch.int8, device=dev, generator=g),
+             torch.rand(kp // 512, n, device=dev, generator=g) * 1e-3 + 1e-4)
+            for _ in range(copies)]
+
+
+def _split_inputs(layout: str, x, planes):
+    """(kernel, plain version, its argument tuples, one per plane, counter
+    name, int8 operations) of one i4g or i8g call on x, as qmatmul makes
+    them."""
+    import torch
+
+    from pipeinfer_tpu_torch.ops import qmatmul as Q
+
+    m, n = x.shape[0], planes[0][0].shape[1]
+    if layout == "i4g":
+        kp = planes[0][0].shape[0] * 2
+        xq, sx = Q.quantize_activations(x, kp, Q.I4G_HALF)
+        xsum = xq.reshape(m, kp // 128, 128).sum(dim=2, dtype=torch.int32).float()
+        return (Q.i4g_matmul, Q._i4g_plain, [(xq, xsum, sx, *p) for p in planes], "i4g_matmul",
+                2 * m * n * kp)
+    kp = planes[0][0].shape[0]
+    xq, sx = Q.quantize_activations(x, kp, Q.I8G_SLAB)
+    return Q.i8g_matmul, Q._i8g_plain, [(xq, sx, *p) for p in planes], "i8g_matmul", 2 * m * n * kp
+
+
+def _check_repeat(kern, plain, args, label: str, kw=None) -> tuple[float, float]:
+    """Two kernel calls on the same inputs bitwise equal, and within
+    MATMUL_RTOL of max|plain| of the plain version. Returns (max error,
+    max|plain|)."""
+    import torch
+
+    kw = kw or {}
+    got = kern(*args, **kw)
+    again = kern(*args, **kw)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: two calls on the same inputs differ by up to "
+                             f"{(got - again).abs().max().item()}")
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    if not err <= MATMUL_RTOL * scale:
+        raise AssertionError(f"{label}: max err {err} > {MATMUL_RTOL} * {scale}")
+    return err, scale
 
 
 def _cut(kern) -> dict | None:
@@ -152,54 +224,27 @@ def phase_qmatmul(records: dict, details: list):
     for layout, shapes in (("i4g", I4G_SHAPES), ("i8g", I8G_SHAPES)):
         worst = 0.0
         for name, (n, k) in shapes.items():
+            planes = _split_planes(layout, n, k, dev, g, copies_for(
+                n * k // 2 if layout == "i4g" else -(-k // 512) * 512 * n))
             if layout == "i4g":
-                planes = [_rand_i4g(n, k, dev, g) for _ in range(copies_for(n * k // 2))]
                 qs, step, wmin = planes[0]
                 qt = Q.QuantTensor(qs, None, step, wmin, qtype=None, shape=(n, k), layout="i4g")
             else:
-                kp = -(-k // 512) * 512
-                planes = [(torch.randint(-127, 128, (kp, n), dtype=torch.int8, device=dev,
-                                         generator=g),
-                           torch.rand(kp // 512, n, device=dev, generator=g) * 1e-3 + 1e-4)
-                          for _ in range(copies_for(kp * n))]
                 qt = Q.QuantTensor(planes[0][0], None, planes[0][1], planes[0][1][:0],
                                    qtype=None, shape=(n, k), layout="i8g")
             w_bf16 = Q.dequant_T(qt, torch.bfloat16)  # [K, N], for the yardstick only
             for m in I4G_MS:
                 x = torch.randn(m, k, device=dev, generator=g)
-                if layout == "i4g":
-                    kp = planes[0][0].shape[0] * 2
-                    xq, sx = Q.quantize_activations(x, kp, Q.I4G_HALF)
-                    xsum = xq.reshape(m, kp // 128, 128).sum(dim=2, dtype=torch.int32).float()
-                    ins = [(xq, xsum, sx, *p) for p in planes]
-                    kern, plain, name_k = Q.i4g_matmul, Q._i4g_plain, "i4g_matmul"
-                    ops, kind = 2 * m * n * kp, "int8"
-                else:
-                    kp = planes[0][0].shape[0]
-                    xq, sx = Q.quantize_activations(x, kp, Q.I8G_SLAB)
-                    ins = [(xq, sx, *p) for p in planes]
-                    kern, plain, name_k = Q.i8g_matmul, Q._i8g_plain, "i8g_matmul"
-                    ops, kind = 2 * m * n * kp, "int8"
-                got = kern(*ins[0])
+                kern, plain, ins, name_k, ops = _split_inputs(layout, x, planes)
+                err, scale = _check_repeat(kern, plain, ins[0], f"{name_k} {name} M={m}")
                 cut = _cut(kern)
-                again = kern(*ins[0])
-                want = plain(*ins[0])
-                torch.cuda.synchronize()
-                if not torch.equal(got, again):
-                    raise AssertionError(f"{name_k} {name} M={m}: two calls on the same inputs "
-                                         f"differ by up to {(got - again).abs().max().item()}")
-                err = (got - want).abs().max().item()
-                scale = want.abs().max().item()
-                if not err <= MATMUL_RTOL * scale:
-                    raise AssertionError(f"{name_k} {name} M={m}: max err {err} > "
-                                         f"{MATMUL_RTOL} * {scale}")
                 worst = max(worst, err)
                 it = iter(range(1 << 30))
                 k_ms = gpu_ms(lambda: kern(*ins[next(it) % len(ins)]), iters=20)
                 p_ms = gpu_ms(lambda: plain(*ins[0]), iters=3, warmup=1)
                 xb = x.to(torch.bfloat16)
                 lib_ms = gpu_ms(lambda: xb @ w_bf16, iters=20)
-                b_ms, b_by = bound(nbytes(*ins[0]) + m * n * 4, ops, kind)
+                b_ms, b_by = bound(nbytes(*ins[0]) + m * n * 4, ops, "int8")
                 row = dict(kernel=name_k, tensor=name, N=n, K=k, M=m, max_abs_err=err,
                            tol=MATMUL_RTOL * scale, ms=k_ms, plain_ms=p_ms, yardstick_ms=lib_ms,
                            bound_ms=b_ms, bound_by=b_by, plan=cut)
@@ -338,20 +383,9 @@ def phase_exact(records: dict, details: list):
                 x = torch.randn(m, k, device=dev, generator=g)
                 calls = [_exact_inputs(layout, x, qt) for qt in qts]
                 kern, plain, args, kw = calls[0]
-                got = kern(*args, **kw)
+                err, scale = _check_repeat(kern, plain, args,
+                                           f"{kern.__name__} {qname} {name} M={m}", kw)
                 cut = _cut(kern)
-                again = kern(*args, **kw)
-                want = plain(*args)
-                torch.cuda.synchronize()
-                if not torch.equal(got, again):
-                    raise AssertionError(f"{kern.__name__} {qname} {name} M={m}: two calls on "
-                                         f"the same inputs differ by up to "
-                                         f"{(got - again).abs().max().item()}")
-                err = (got - want).abs().max().item()
-                scale = want.abs().max().item()
-                if not err <= MATMUL_RTOL * scale:
-                    raise AssertionError(f"{kern.__name__} {qname} {name} M={m}: max err {err} > "
-                                         f"{MATMUL_RTOL} * {scale}")
                 key = kern.__name__
                 worst[key] = max(worst.get(key, 0.0), err)
                 it = iter(range(1 << 30))
@@ -748,13 +782,400 @@ def run_cli_engines(pair, n_predict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# serving: the device-verified engines and the server
+# ---------------------------------------------------------------------------
+
+SERVE_PROMPTS = [  # 4 greedy requests, 1 with repeat_penalty 1.1, 1 greedy joining late
+    "Once upon a time, there was a little robot who wanted to see the sea.",
+    "The quick brown fox jumps over the lazy dog, and then",
+    "In the beginning the universe was created. This has made a lot of people",
+    "Every day the baker opened the shop before sunrise and",
+    "The little robot said to the sea:",
+    "At the end of the long road there stood a house where",
+]
+SERVE_N = 48  # tokens per request
+LANE_SLOTS = (60, 61, 62, 63)  # the server's 4 lanes: the top of the 64 slots
+
+
+def check_serve_shapes(details: list):
+    """The kernels at the shapes the batched loops give them: i4g and i8g at
+    M = 4 (a draft step of 4 lanes) and 36 (their target pass) on the 7B
+    wqkv and w_down, with the bitwise repeat; cell attention at T = 4 with
+    one row on each of the slots 60-63 over cells those slots own, against
+    its plain version and against a softmax over each row's own cells."""
+    import numpy as np
+    import torch
+
+    from pipeinfer_tpu_torch.ops import cell_attention as CA
+    from pipeinfer_tpu_torch.runtime import kv_cache as KV
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for layout in ("i4g", "i8g"):
+        for name in SERVE_SHAPES:
+            n, k = I4G_SHAPES[name]
+            planes = _split_planes(layout, n, k, dev, g)
+            for m in SERVE_MS:
+                x = torch.randn(m, k, device=dev, generator=g)
+                kern, plain, ins, name_k, _ = _split_inputs(layout, x, planes)
+                err, scale = _check_repeat(kern, plain, ins[0], f"{name_k} {name} M={m}")
+                cut = _cut(kern)
+                details.append(dict(kernel=name_k, tensor=name, N=n, K=k, M=m, max_abs_err=err,
+                                    tol=MATMUL_RTOL * scale, plan=cut, phase="serve"))
+                log(f"{name_k:11s} {name:7s} [{n}x{k}] M={m:2d}: err {err:.3g} "
+                    f"(tol {MATMUL_RTOL * scale:.3g}), two calls bitwise equal"
+                    + ("" if cut is None else f"  [{cut['splits']} splits, {cut['blocks']} "
+                       f"blocks, row tile {cut['rows']}]"))
+            del planes
+
+    h, d, c, used = 32, 128, 2048, 900
+    rng = np.random.default_rng(SEED)
+    owner = rng.choice(np.array(LANE_SLOTS), used)
+    pos_np = np.full(c, -1, np.int32)
+    for s in LANE_SLOTS:  # each slot's cells hold its positions 0, 1, 2, ...
+        pos_np[:used][owner == s] = np.arange(int((owner == s).sum()))
+    rows = np.zeros((c, KV.SEQ_WORDS), np.uint32)
+    rows[:used] = KV.host_rows([[int(o)] for o in owner])
+    kc, vc = _attn_cache(h, d, c, dev, g)
+    pos = torch.from_numpy(pos_np).to(dev)
+    seq = torch.from_numpy(rows.view(np.int32)).to(dev)
+    tok_seq = torch.tensor(LANE_SLOTS, dtype=torch.int32, device=dev)
+    tok_pos = torch.tensor([int((owner == s).sum()) - 1 - 7 * i for i, s in enumerate(LANE_SLOTS)],
+                           dtype=torch.int32, device=dev)
+    valid = torch.ones(4, dtype=torch.bool, device=dev)
+    q = torch.randn(4, h, d, device=dev, generator=g)
+    scale = d ** -0.5
+    for hot in (0, 1024):
+        got = CA.cell_attention(q, kc, vc, pos, seq, tok_pos, tok_seq, valid, layer=1,
+                                scale=scale, hot=hot)
+        want = CA._cell_attention_plain(q, kc, vc, pos, seq, tok_pos, tok_seq, valid, 1, scale,
+                                        None, hot or c)
+        own = []  # each row over its own slot's visible cells, selected on the host
+        for i, s in enumerate(LANE_SLOTS):
+            sel = torch.from_numpy(np.nonzero((owner == s) & (pos_np[:used] <= int(tok_pos[i])))[0]
+                                   ).to(dev)
+            sc = torch.einsum("hd,hcd->hc", q[i], kc[1][:, sel].float()) * scale
+            own.append(torch.einsum("hc,hcd->hd", torch.softmax(sc, dim=-1), vc[1][:, sel].float()))
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        err_own = (got - torch.stack(own)).abs().max().item()
+        if not (err <= ATTN_ATOL and err_own <= ATTN_ATOL):
+            raise AssertionError(f"cell_attention T=4 on slots 60-63, hot={hot}: max err {err} "
+                                 f"against the plain version, {err_own} against each row's own "
+                                 f"cells")
+        details.append(dict(kernel="cell_attention", T=4, H=h, KVH=h, D=d, C=c, hot=hot,
+                            slots=list(LANE_SLOTS), max_abs_err=err, max_abs_err_own=err_own,
+                            tol=ATTN_ATOL, phase="serve"))
+        log(f"cell_attention T=4 slots 60-63 C={c} hot={hot}: err {err:.3g} against the plain "
+            f"version, {err_own:.3g} against each row's own cells (tol {ATTN_ATOL})")
+    # the dense path's mask at the same slots: the card's equals the CPU's
+    mask = KV.attn_mask(KV.KVCache(kc, vc, pos, seq), tok_pos, tok_seq)
+    cpu = KV.attn_mask(KV.KVCache(kc[:, :, :1], vc[:, :, :1], pos.cpu(), seq.cpu()),
+                       tok_pos.cpu(), tok_seq.cpu())
+    if not torch.equal(mask.cpu(), cpu):
+        raise AssertionError("attn_mask on the card differs from the CPU's at slots 60-63")
+    del kc, vc
+
+
+def _post(port: int, body: dict, stream_started=None) -> dict:
+    """One /completion request; a streamed one (stream_started: an Event,
+    set at its first piece) comes back as the non-streamed reply would."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/completion",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        if not body.get("stream"):
+            return json.load(r)
+        pieces = []
+        for line in r:
+            line = line.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            obj = json.loads(line[6:])
+            pieces.append(obj.get("content") or "")
+            stream_started.set()
+            if obj.get("stop"):
+                return dict(obj, content="".join(pieces))
+    raise AssertionError("stream ended without its final event")
+
+
+def run_serve(counters: dict, n_predict: int) -> dict:
+    """The serve phase on the 7B Q4_K pair (see the module docstring)."""
+    import threading
+
+    import torch
+
+    from pipeinfer_tpu_torch.serving.server import serve
+    from pipeinfer_tpu_torch.spec.params import SpecParams
+    from pipeinfer_tpu_torch.tools.benchpair import cached_bench_pair
+
+    t_path, d_path = cached_bench_pair(ROOT / "build" / "bench", "7b", "Q4_K", 0.02, log=log)
+    t0 = time.perf_counter()
+    # the server as `python -m pipeinfer_tpu_torch.serving.server --draft D`
+    # starts it: --n-draft 8, --max-inflight 3, --device-lanes 4
+    spec = SpecParams(n_draft=8, n_parallel=1, p_accept=0.0, max_inflight=3)
+    httpd, engine = serve(str(t_path), "127.0.0.1", 0, draft_path=str(d_path), spec_params=spec,
+                          device_lanes=4)
+    http_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    http_thread.start()
+    try:
+        torch.cuda.synchronize()
+        res = _serve_checks(httpd, engine, counters, n_predict, time.perf_counter() - t0)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        engine.shutdown()
+        http_thread.join(timeout=30)
+    if engine.thread.is_alive() or http_thread.is_alive():
+        raise AssertionError("the server's threads did not stop")
+    del httpd, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["launches"]["device_loop_q6k"] = _device_loop_q6k(counters, n_predict)
+    res["total_s"] = time.perf_counter() - t0
+    return res
+
+
+def _device_loop_q6k(counters: dict, n_predict: int) -> dict:
+    """DeviceLoopEngine on the toy Q6_K pair, whose matmuls all take the
+    i8g kernel (as a Q4_K_M file's Q6_K tensors do): its stream equals
+    plain greedy, and i8g launched. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from pipeinfer_tpu_torch.models import load_model
+    from pipeinfer_tpu_torch.runtime.context import Batch, InferenceContext
+    from pipeinfer_tpu_torch.sampling.samplers import SamplingParams
+    from pipeinfer_tpu_torch.spec.device_loop import DeviceLoopEngine
+    from pipeinfer_tpu_torch.spec.params import SpecParams
+    from pipeinfer_tpu_torch.tools.benchpair import cached_bench_pair
+
+    t_path, d_path = cached_bench_pair(ROOT / "build" / "bench", "toy", "Q6_K", 0.02, log=log)
+    tgt, dft = load_model(t_path), load_model(d_path)
+    prompt = [1] + np.random.default_rng(SEED).integers(3, tgt[1].n_vocab, 31).tolist()
+    c = InferenceContext(*tgt, n_cells=1024)
+    b = Batch()
+    for i, t in enumerate(prompt):
+        b.add(t, i, 0, want_logits=(i == len(prompt) - 1))
+    first = int(np.argmax(c.decode(b)[-1]))
+    want = [first] + c.draft_chain(first, len(prompt), 0, n_predict - 1, n_cand=0)[0]
+    greedy = SamplingParams(temp=0.0, penalty_repeat=1.0, penalty_last_n=0)
+    for c_ in counters.values():
+        c_.launches = 0
+    eng = DeviceLoopEngine(InferenceContext(*tgt, n_cells=1024), InferenceContext(*dft, n_cells=1024),
+                           greedy, SpecParams(n_draft=8), eos_id=-1, rounds=8)
+    got = eng.generate(list(prompt), n_predict, ignore_eos=True)
+    torch.cuda.synchronize()
+    launches = {k: c_.launches for k, c_ in counters.items()}
+    if got != want:
+        raise AssertionError(f"[serve] DeviceLoopEngine on the toy Q6_K pair differs from plain "
+                             f"greedy: {got[:12]} vs {want[:12]}")
+    for k in ("i8g_matmul", "cell_attention"):
+        if launches[k] == 0:
+            raise AssertionError(f"[serve] DeviceLoopEngine on the toy Q6_K pair never launched {k}")
+    log(f"[serve] DeviceLoopEngine on the toy Q6_K pair == plain greedy over {n_predict} tokens; "
+        f"launches {launches}")
+    del tgt, dft, c, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _serve_checks(httpd, engine, counters: dict, n_predict: int, load_s: float) -> dict:
+    """The serve phase's checks over a running --draft server (see the
+    module docstring, phase 7). Returns the run's record."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from pipeinfer_tpu_torch.cli.main import generate as cli_generate
+    from pipeinfer_tpu_torch.runtime.context import Batch, InferenceContext
+    from pipeinfer_tpu_torch.sampling.samplers import SamplerState, SamplingParams
+    from pipeinfer_tpu_torch.serving.server import _sampling_from_body
+    from pipeinfer_tpu_torch.spec.controller import PipeInferController
+    from pipeinfer_tpu_torch.spec.device_loop import DeviceLoopEngine
+    from pipeinfer_tpu_torch.spec.device_multi import BatchedDeviceLoop
+    from pipeinfer_tpu_torch.spec.params import SpecParams
+    from pipeinfer_tpu_torch.tokenizer.stream import StreamDecoder
+
+    sched, tok = engine.scheduler, engine.tok
+    tgt, dft = sched.ctx, sched.engine.dft
+    log(f"[serve] server up on port {httpd.server_address[1]} in {load_s:.1f} s (target "
+        f"{tgt.cfg.n_layers}L, draft {dft.cfg.n_layers}L, {tgt.n_cells} cells, lanes on slots "
+        f"{sched.devsrv.seq_base}-{sched.devsrv.seq_base + sched.devsrv.S - 1})")
+    if sched.devsrv is None or sched.devsrv.seq_base != LANE_SLOTS[0]:
+        raise AssertionError("the --draft server has no device lanes on slots 60-63")
+
+    def ctx(which):  # fresh contexts over the server's loaded weights (no copy)
+        return InferenceContext(which.params, which.cfg, n_cells=1024)
+
+    greedy = SamplingParams(temp=0.0, penalty_repeat=1.0, penalty_last_n=0)
+
+    def launched(fn):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: c.launches for k, c in counters.items()}
+
+    # 1. DeviceLoopEngine against plain greedy and the controller
+    rng = np.random.default_rng(SEED)
+    prompt = [1] + rng.integers(3, tgt.cfg.n_vocab, 31).tolist()
+
+    def plain(n):
+        c = ctx(tgt)
+        b = Batch()
+        for i, t in enumerate(prompt):
+            b.add(t, i, 0, want_logits=(i == len(prompt) - 1))
+        first = int(np.argmax(c.decode(b)[-1]))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rest, _ = c.draft_chain(first, len(prompt), 0, n - 1, n_cand=0)
+        return [first] + rest, time.perf_counter() - t1
+
+    def timed(engine_fn, n):
+        e = engine_fn()
+        t1 = time.perf_counter()
+        out = e.generate(list(prompt), n, ignore_eos=True)
+        torch.cuda.synchronize()
+        return e, out, time.perf_counter() - t1
+
+    def device_loop():
+        return DeviceLoopEngine(ctx(tgt), ctx(dft), greedy, SpecParams(n_draft=8), eos_id=-1,
+                                rounds=8)
+
+    def controller():
+        return PipeInferController(ctx(tgt), ctx(dft), greedy, SpecParams(
+            n_draft=8, n_parallel=1, p_accept=0.1, p_split=0.9, max_inflight=4), eos_id=-1)
+
+    timed(device_loop, 16)  # warm-up
+    timed(controller, 16)
+    want, t_plain = plain(n_predict)
+    _, _, t_ctrl = timed(controller, n_predict)
+    (dl, got, t_dl), dl_launches = launched(lambda: timed(device_loop, n_predict))
+    if got != want:
+        first = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        raise AssertionError(f"[serve] DeviceLoopEngine differs from plain greedy at token "
+                             f"{first}: {got[first:first + 8]} vs {want[first:first + 8]}")
+    for k in ("i4g_matmul", "cell_attention"):
+        if dl_launches[k] == 0:
+            raise AssertionError(f"[serve] DeviceLoopEngine never launched {k}")
+    st = dl.stats
+    res = dict(label="serve", load_s=load_s, n_predict=n_predict,
+               plain_tok_s=(n_predict - 1) / t_plain, controller_tok_s=n_predict / t_ctrl,
+               device_loop_tok_s=n_predict / t_dl, device_loop_s=t_dl,
+               device_loop_decode_tok_s=st.n_predict / max(dl.t_decode, 1e-9),
+               device_loop_acceptance=st.n_accept / max(st.n_drafted, 1),
+               device_loop_rounds=st.n_rounds, launches={"device_loop": dl_launches})
+    log(f"[serve] DeviceLoopEngine stream == plain greedy over {n_predict} tokens; plain "
+        f"{res['plain_tok_s']:.1f} tok/s, controller {res['controller_tok_s']:.1f} tok/s, device "
+        f"loop {res['device_loop_tok_s']:.1f} tok/s ({st.n_rounds} rounds, acceptance "
+        f"{res['device_loop_acceptance']:.3f}); launches {dl_launches}")
+
+    # 2. the texts cli.main generates for the server's prompts
+    bodies = [dict(prompt=p, n_predict=SERVE_N, temperature=0, ignore_eos=True,
+                   repeat_penalty=1.0, repeat_last_n=0) for p in SERVE_PROMPTS]
+    bodies[4] = dict(prompt=SERVE_PROMPTS[4], n_predict=SERVE_N, temperature=0, ignore_eos=True,
+                     repeat_penalty=1.1)
+    bodies[0]["stream"] = True
+    ids = [tok.encode(p, add_bos=True) for p in SERVE_PROMPTS]
+    texts, ref_tokens = [], []
+    for i, b in enumerate(bodies):
+        sampler = SamplerState(params=_sampling_from_body(b))
+        for t in ids[i]:
+            sampler.accept(t, apply_grammar=False)
+        out = cli_generate(ctx(tgt), tok, sampler, ids[i], SERVE_N, ignore_eos=True)
+        sdec = StreamDecoder(tok)
+        printed = "".join(sdec.feed(t) for t in out)  # what cli.main prints
+        texts.append(printed + sdec.flush())  # and the bytes its decoder still holds
+        ref_tokens.append(out)
+
+    # 3. BatchedDeviceLoop: the 4 greedy prompts as 4 streams
+    bl = BatchedDeviceLoop(ctx(tgt), ctx(dft), greedy, SpecParams(n_draft=8), n_streams=4,
+                           eos_id=-1, rounds=4)
+    t1 = time.perf_counter()
+    outs, b_launches = launched(lambda: bl.generate_many([list(x) for x in ids[:4]], SERVE_N,
+                                                         ignore_eos=True))
+    t_batched = time.perf_counter() - t1
+    for s in range(4):
+        if outs[s] != ref_tokens[s]:
+            raise AssertionError(f"[serve] BatchedDeviceLoop stream {s} differs from its plain "
+                                 f"greedy stream: {outs[s][:12]} vs {ref_tokens[s][:12]}")
+    for k in ("i4g_matmul", "cell_attention"):
+        if b_launches[k] == 0:
+            raise AssertionError(f"[serve] BatchedDeviceLoop never launched {k}")
+    res.update(batched_s=t_batched, batched_tok_s=4 * SERVE_N / t_batched)
+    res["launches"]["batched"] = b_launches
+    log(f"[serve] BatchedDeviceLoop: 4 streams == their plain greedy streams over {SERVE_N} "
+        f"tokens, {res['batched_tok_s']:.1f} tok/s in all; launches {b_launches}")
+
+    # 4. the server: 6 concurrent requests, the last joining after the
+    # first streamed piece
+    port = httpd.server_address[1]
+    replies = [None] * len(bodies)
+    errors = []
+    started = threading.Event()
+
+    def post(i):
+        try:
+            if i == len(bodies) - 1 and not started.wait(timeout=600):
+                raise AssertionError("no streamed piece arrived")
+            replies[i] = _post(port, bodies[i], started)
+        except Exception as e:  # reported below: any failed request fails the phase
+            errors.append(f"request {i}: {e!r}")
+
+    def serve_all():
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(len(bodies))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        return any(th.is_alive() for th in threads)
+
+    t1 = time.perf_counter()
+    stuck, s_launches = launched(serve_all)
+    t_server = time.perf_counter() - t1
+    if stuck or errors:
+        raise AssertionError(f"[serve] requests failed: {errors or 'a request hung'}")
+    if not engine.thread.is_alive():
+        raise AssertionError("[serve] the engine thread died")
+    for i, (r, want_text) in enumerate(zip(replies, texts)):
+        if r.get("error"):
+            raise AssertionError(f"[serve] request {i} answered an error: {r['error']}")
+        if r["content"] != want_text or r["tokens_predicted"] != SERVE_N:
+            raise AssertionError(f"[serve] request {i}: {r['tokens_predicted']} tokens, content "
+                                 f"{r['content'][:120]!r}, cli.main's {want_text[:120]!r}")
+    deadline = time.perf_counter() + 10
+    while (sched.n_device_served, sched.n_host_served) != (5, 1) and \
+            time.perf_counter() < deadline:
+        time.sleep(0.05)
+    served = dict(device_lanes=sched.n_device_served, multi_pipeinfer=sched.n_host_served)
+    if served != dict(device_lanes=5, multi_pipeinfer=1):
+        raise AssertionError(f"[serve] served counters {served}; want 5 on the device lanes and "
+                             f"1 on MultiPipeInfer")
+    for k in ("i4g_matmul", "cell_attention"):
+        if s_launches[k] == 0:
+            raise AssertionError(f"[serve] the server never launched {k}")
+    res.update(server_s=t_server, server_tok_s=len(bodies) * SERVE_N / t_server, served=served,
+               texts_sha256=[hashlib.sha256(t.encode()).hexdigest() for t in texts])
+    res["launches"]["server"] = s_launches
+    log(f"[serve] the server answered 6 concurrent requests in {t_server:.1f} s: 5 greedy == "
+        f"cli.main's text, the repeat_penalty 1.1 one == plain decoding under its sampler, "
+        f"served {served}; launches {s_launches}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="kernels,main,i8g,cli",
-                    help="comma list of kernels, main, i8g, cli (default: all); qmatmul "
-                         "runs only the i4g and i8g part of kernels, exact only the "
+    ap.add_argument("--phases", default="kernels,main,i8g,cli,serve",
+                    help="comma list of kernels, main, i8g, cli, serve (default: all); "
+                         "qmatmul runs only the i4g and i8g part of kernels, exact only the "
                          "k_major, i8 and k4 part")
     ap.add_argument("--n-predict", type=int, default=128)
     args = ap.parse_args()
@@ -834,6 +1255,13 @@ def main() -> int:
         log(f"the 7B CLI printed the same text under {', '.join(texts)}")
         runs.append(run_cli_engines(cached_bench_pair(bench, "toy", "Q6_K", 0.02, log=log),
                                     args.n_predict))
+    if "serve" in phases:
+        t0 = time.perf_counter()
+        check_serve_shapes(details)
+        runs.append(run_serve(counters, args.n_predict))
+        for k, rec in records.items():  # launches per serve run, beside the main path's
+            rec["launches_serve"] = {run: n[k] for run, n in runs[-1]["launches"].items()}
+        log(f"[serve] phase took {time.perf_counter() - t0:.1f} s")
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -4,8 +4,9 @@ detokenize, with the full sampler chain and streaming output.
 
 Port of pipeinfer_tpu.cli.main's non-interactive path. The interactive,
 instruct and ChatML modes, infill, the prompt cache, LoRA adapters, run
-dumps and profiling are not ported yet (ROADMAP.md queue 10): asking for
-one exits with an error that says so.
+dumps and profiling are not ported yet (ROADMAP.md queue 1, "The rest of
+the JAX package's surface"): asking for one exits with an error that says
+so.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from ..sampling.samplers import SamplerState
 from ..tokenizer import tokenizer_from_gguf
 from .args import add_gen_args, add_model_args, add_sampling_args, read_prompt, sampling_from_args
 
-_QUEUE_10 = "ROADMAP.md queue 10"
+_SURFACE = "ROADMAP.md queue 1, \"The rest of the JAX package's surface\""
 
 
 def build_context(model_path: str, n_cells: int, cache_dtype: str = "bf16",
@@ -56,7 +57,7 @@ def generate(ctx, tok, sampler: SamplerState, prompt_ids, n_predict, *,
     with K re-rotation (ref: main.cpp context swapping n_keep/n_discard +
     llama_kv_cache_seq_shift; infinite generation via --keep). The JAX
     package's cached_prefix (prompt-cache reuse) waits with --prompt-cache
-    in ROADMAP.md queue 10."""
+    (ROADMAP.md queue 1, "The rest of the JAX package's surface")."""
     batch = Batch()
     for i in range(len(prompt_ids)):
         batch.add(prompt_ids[i], i, 0, want_logits=(i == len(prompt_ids) - 1))
@@ -110,7 +111,7 @@ def refuse_unported(args) -> None:
     for name, on in asked:
         if on:
             raise SystemExit(f"error: {name} is not ported to pipeinfer_tpu_torch yet "
-                             f"({_QUEUE_10})")
+                             f"({_SURFACE})")
 
 
 def main(argv=None):

@@ -4,11 +4,11 @@ speculation driver (ref: examples/speculative/speculative.cpp CLI + metrics
 
 Port of pipeinfer_tpu.cli.speculative for its one-device engines: the
 async PipeInfer controller (device-corrected with -np 1 and a device-
-expressible sampler, host-verified trees otherwise) and the lock-step
-baseline. The device-loop engine (ROADMAP.md queue 1 item 6) and staged
-targets (queue 8) are not ported yet: asking for them, including through
---engine auto where it would pick the device loop, exits with an error
-instead of running another engine.
+expressible sampler, host-verified trees otherwise), the device-resident
+loop (spec/device_loop.py; what --engine auto picks where it applies) and
+the lock-step baseline. Staged targets are not ported yet: --stages > 1
+exits with an error naming their ROADMAP.md item instead of running
+another engine.
 """
 
 from __future__ import annotations
@@ -30,8 +30,7 @@ from .args import (
 )
 from .main import build_context
 
-_DEVICE_LOOP = "ROADMAP.md queue 1 item 6"
-_STAGES = "ROADMAP.md queue 8"
+_STAGES = 'ROADMAP.md queue 1, "Other architectures and stages"'
 
 
 def spec_from_args(args) -> SpecParams:
@@ -56,15 +55,17 @@ def main(argv=None):
     add_spec_args(p)
     p.add_argument("--sync", action="store_true", help="lock-step baseline (speculative_orig)")
     p.add_argument("--device-loop", action="store_true",
-                   help=f"device-resident speculative loop (not ported yet: {_DEVICE_LOOP})")
+                   help="device-resident speculative loop: R rounds per dispatch with "
+                   "verification on the device (greedy or stateless temp/top-k/top-p "
+                   "chains only; falls back to the async controller otherwise)")
     p.add_argument("--engine", choices=("auto", "controller", "device-loop", "sync"),
                    default=None,
-                   help="engine selection; 'auto' would pick the device-resident loop "
-                   "where it applies (not ported yet, so auto exits there) and the async "
-                   "controller otherwise. Default: controller, or what --sync asks for")
+                   help="engine selection; 'auto' picks the device-resident loop whenever "
+                   "its support envelope applies (one-device target, -np 1, stateless "
+                   "sampler, no grammar) and the async controller otherwise. Default: "
+                   "controller, or whatever --sync/--device-loop request")
     p.add_argument("--loop-rounds", type=int, default=8,
-                   help="speculative rounds per device-loop dispatch (accepted for "
-                   "command-line compatibility; no effect until the device loop is ported)")
+                   help="speculative rounds per device-loop dispatch")
     p.add_argument("--stages", type=int, default=1,
                    help=f"pipeline the target over N stages (not ported yet: {_STAGES})")
     p.add_argument("--layer-split", default="",
@@ -83,21 +84,16 @@ def main(argv=None):
     if args.stages > 1:
         raise SystemExit(f"error: --stages > 1 is not ported to pipeinfer_tpu_torch yet "
                          f"({_STAGES})")
-    if args.device_loop:
-        raise SystemExit(f"error: the device-loop engine is not ported to pipeinfer_tpu_torch "
-                         f"yet ({_DEVICE_LOOP})")
 
     sp = spec_from_args(args)
     sampling = sampling_from_args(args)
     grammar_text = None
     if args.grammar or args.grammar_file:
         grammar_text = args.grammar or open(args.grammar_file).read()
-    if (args.engine == "auto" and not args.sync and sp.n_parallel == 1
-            and grammar_text is None and device_loop.supported(sampling)):
-        # the JAX package's auto pick would be the device loop here
-        raise SystemExit(f"error: --engine auto picks the device-loop engine for this "
-                         f"configuration, which is not ported to pipeinfer_tpu_torch yet "
-                         f"({_DEVICE_LOOP}); use --engine controller")
+    if args.engine == "auto" and not args.sync:
+        # on-device verification wherever it applies; tree drafting
+        # (-np > 1) keeps the controller
+        args.device_loop = sp.n_parallel == 1 and device_loop.supported(sampling, grammar_text)
 
     ctx_tgt, tok = build_context(args.model, args.ctx_size, args.cache_dtype, device=args.device)
     ctx_dft, _ = build_context(args.model_draft, args.ctx_size, args.cache_dtype,
@@ -126,11 +122,18 @@ def main(argv=None):
         sys.stdout.write(sdec.feed(t))
         sys.stdout.flush()
 
+    if args.device_loop and not device_loop.supported(sampling, grammar):
+        print("warning: --device-loop unsupported for this config (stateful sampler "
+              "chain); using the async controller", file=sys.stderr)
+        args.device_loop = False
+    metrics = None
     if args.sync:
         engine = SyncSpeculator(
             ctx_tgt, ctx_dft, sampling, sp, eos_id=tok.vocab.eos_id, grammar=grammar
         )
-        metrics = None
+    elif args.device_loop:
+        engine = device_loop.DeviceLoopEngine(ctx_tgt, ctx_dft, sampling, sp,
+                                              eos_id=tok.vocab.eos_id, rounds=args.loop_rounds)
     else:
         engine = PipeInferController(
             ctx_tgt, ctx_dft, sampling, sp, eos_id=tok.vocab.eos_id, grammar=grammar
@@ -150,6 +153,13 @@ def main(argv=None):
     if stats.n_drafted_unverified:
         err(f"accept (decided) = {100.0 * stats.accept_rate_decided:.3f}% "
             f"({stats.n_drafted_unverified} drafts never verified)")
+    if args.device_loop:
+        # decode time lives inside the device loop's dispatches — the
+        # context's per-dispatch timings only see the prefill; report the
+        # engine's
+        err(f"encode    = {len(ids) / max(engine.t_prefill, 1e-9):.2f} t/s")
+        err(f"decode    = {stats.n_predict / max(engine.t_decode, 1e-9):.2f} t/s "
+            f"(device loop, {stats.n_rounds} rounds)")
     if metrics is not None:
         err(f"runs      = {metrics.n_runs} ({metrics.n_canceled_runs} canceled)")
         err(f"dead work = {100.0 * metrics.dead_work_frac:.1f}% of dispatched tokens")

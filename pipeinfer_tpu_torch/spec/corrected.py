@@ -31,7 +31,7 @@ import torch
 
 from ..runtime import kv_cache as kv
 from ..runtime.context import (AsyncHandle, InferenceContext, _device_draft_sample,
-                               device_generator, dev_scalar, draft_loop, h2d, sparse_pack,
+                               device_generator, dev_scalar, h2d, sparse_pack,
                                to_host_async, unpack_sparse)
 
 
@@ -62,6 +62,86 @@ def _drop_rows(cache: kv.KVCache, cells: torch.Tensor, keep: torch.Tensor) -> No
     cache.seq[idx] = torch.where(keep[:, None], cache.seq[idx], 0)
 
 
+def spec_round(dft: InferenceContext, tgt: InferenceContext, roots: torch.Tensor,
+               bases: torch.Tensor, seqs: torch.Tensor, dcells: torch.Tensor,
+               tcells: torch.Tensor, *, active: torch.Tensor | None = None,
+               samp: tuple | None = None, tsample: bool = False, gen=None):
+    """Steps 1-3 of one speculative round for S streams at once, enqueued
+    with no host round trip: the round body of the corrected run (S = 1),
+    the device-loop engine (S = 1) and the batched device loop.
+
+    roots / bases / seqs int32 [S] (root token, its position, the stream's
+    sequence slot); dcells [S, depth], tcells [S, depth+1]; active bool [S]
+    or None (all live). An inactive stream's rows decode as padding (no
+    cache writes a live row can see), its m is 0 and its (root, base)
+    stay as they were. Each draft step is one [S]-row decode; the target
+    takes one pass over the S*(depth+1) stream-major rows.
+
+    Returns (toks int32 [S, depth], tlogits [S*(depth+1), V], m int64 [S],
+    bonus int32 [S], new_bases int32 [S]); rolling back the rejected rows
+    is the caller's (drop_rejected, or a per-stream tail trim)."""
+    n, depth = dcells.shape
+    valid = active if active is not None else dft._ones(n)
+    tok, toks = roots, []
+    for i in range(depth):  # 1) draft chains: one [S]-row decode per step
+        logits, _ = dft._forward(dft.params, dft.cfg, dft.cache, tok, bases + i, seqs,
+                                 dcells[:, i], valid, None)
+        if samp is not None:
+            tok = _device_draft_sample(logits, samp, gen)
+        else:
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        toks.append(tok)
+    toks = torch.stack(toks, dim=1)
+
+    # 2) one target pass over [root ++ drafted] per stream
+    idx = torch.arange(depth + 1, device=tgt.device, dtype=torch.int32)
+    ttoks = torch.cat([roots[:, None], toks], dim=1).reshape(-1)
+    tpos = (bases[:, None] + idx).reshape(-1)
+    tvalid = tgt._ones(n * (depth + 1)) if active is None else valid.repeat_interleave(depth + 1)
+    tlogits, _ = tgt._forward(tgt.params, tgt.cfg, tgt.cache, ttoks, tpos,
+                              seqs.repeat_interleave(depth + 1), tcells.reshape(-1), tvalid, None)
+
+    # 3) device verification (g[s, i] decides position bases[s]+i+1)
+    if tsample:
+        g = _device_draft_sample(tlogits, samp, gen)
+    else:
+        g = torch.argmax(tlogits, dim=-1).to(torch.int32)
+    g = g.reshape(n, depth + 1)
+    m = torch.cumprod((toks == g[:, :depth]).to(torch.int32), dim=1).sum(dim=1)  # int64
+    if active is not None:  # an inactive stream commits nothing
+        m = torch.where(active, m, 0)
+    bonus = g.gather(1, m[:, None]).squeeze(1)
+    advance = m + 1
+    if active is not None:  # ... and keeps its (root, base)
+        bonus = torch.where(active, bonus, roots)
+        advance = torch.where(active, advance, 0)
+    new_bases = (bases + advance).to(torch.int32)
+    return toks, tlogits, m, bonus, new_bases
+
+
+def drop_rejected(dft: InferenceContext, tgt: InferenceContext, dcells: torch.Tensor,
+                  tcells: torch.Tensor, m: torch.Tensor) -> None:
+    """Index-based rollback of one round's rejected rows, for S streams:
+    draft row i holds pos base+i (root..toks[depth-2]), kept for i <= m
+    (capped); target row i holds pos base+i (root ++ drafted), kept for
+    i <= m. Kept as the reference keeps it: on a FULL accept (m == depth)
+    the draft never decoded toks[depth-1], so the draft KV lacks position
+    base+depth (README "Known gaps"); output correctness is unaffected."""
+    depth = dcells.shape[1]
+    idx = torch.arange(depth + 1, device=m.device)
+    _drop_rows(dft.cache, dcells.reshape(-1),
+               (idx[None, :depth] < torch.clamp(m + 1, max=depth)[:, None]).reshape(-1))
+    _drop_rows(tgt.cache, tcells.reshape(-1), (idx[None, :] < (m + 1)[:, None]).reshape(-1))
+
+
+def commit_rows(toks: torch.Tensor, m: torch.Tensor, bonus: torch.Tensor) -> torch.Tensor:
+    """Per stream, the committed tokens [S, depth+1]: m accepted draft
+    tokens, the bonus at column m, zeros after it."""
+    idx = torch.arange(toks.shape[1] + 1, device=toks.device)[None, :]
+    rows = torch.where(idx < m[:, None], torch.cat([toks, toks[:, -1:]], dim=1), 0)
+    return torch.where(idx == m[:, None], bonus[:, None], rows)
+
+
 def corrected_rounds(dft: InferenceContext, tgt: InferenceContext, root, base, seq_id: int,
                      dcells: torch.Tensor, tcells: torch.Tensor, *, topk: int,
                      samp: tuple | None = None, tsample: bool = False, gen=None):
@@ -75,48 +155,23 @@ def corrected_rounds(dft: InferenceContext, tgt: InferenceContext, root, base, s
     the device; bonus / new_base chain the next run."""
     dev = tgt.device
     rounds, depth = dcells.shape
-    root = dev_scalar(root, dev)
-    base = dev_scalar(base, dev)
-    idx = torch.arange(depth + 1, device=dev)
+    root = dev_scalar(root, dev).reshape(1)
+    base = dev_scalar(base, dev).reshape(1)
+    seqs = tgt._seq_ids(seq_id, 1)
+    first = torch.arange(depth + 1, device=dev) == 0
     outs = []
     for r in range(rounds):
-        # 1) draft chain from root (root decoded at base)
-        toks, _ = draft_loop(dft, root, base, seq_id, dcells[r], depth, samp, gen)
-
-        # 2) one target pass over [root ++ drafted]
-        ttoks = torch.cat([root.reshape(1), toks])
-        tpos = base + idx.to(torch.int32)
-        tlogits, _ = tgt._forward(tgt.params, tgt.cfg, tgt.cache, ttoks, tpos,
-                                  tgt._seq_ids(seq_id, depth + 1), tcells[r],
-                                  tgt._ones(depth + 1), None)
-
-        # 3) device verification (g[i] decides position base+i+1)
-        if tsample:
-            g = _device_draft_sample(tlogits, samp, gen)
-        else:
-            g = torch.argmax(tlogits, dim=-1).to(torch.int32)
-        matches = (toks == g[:depth]).to(torch.int32)
-        m = torch.cumprod(matches, dim=0).sum()  # int64 0-dim
-        bonus = g.gather(0, m.reshape(1)).reshape(())
-        new_base = (base + m + 1).to(torch.int32)
-
-        # 4) drop rejected rows by index: draft row i holds pos base+i
-        # (root..toks[depth-2]), keep i <= m (capped); target row i holds
-        # pos base+i (root ++ drafted), keep i <= m. Kept as the reference
-        # keeps it: on a FULL accept (m == depth) the draft never decoded
-        # toks[depth-1], so the draft KV lacks position base+depth (README
-        # "Known gaps"); output correctness is unaffected.
-        _drop_rows(dft.cache, dcells[r], idx[:depth] < torch.clamp(m + 1, max=depth))
-        _drop_rows(tgt.cache, tcells[r], idx < m + 1)
-
+        toks, tlogits, m, bonus, new_base = spec_round(
+            dft, tgt, root, base, seqs, dcells[r: r + 1], tcells[r: r + 1],
+            samp=samp, tsample=tsample, gen=gen)
+        drop_rejected(dft, tgt, dcells[r: r + 1], tcells[r: r + 1], m)
         # output pack: sparse target rows ++ committed tokens ++ m
-        committed = torch.where(idx < m, torch.cat([toks, toks[-1:]]), 0)
-        committed = torch.where(idx == m, bonus, committed)
-        mcol = torch.where(idx == 0, m, 0)
+        committed = commit_rows(toks, m, bonus)[0]
+        mcol = torch.where(first, m, 0)
         outs.append(torch.cat([sparse_pack(tlogits, topk), committed.float()[:, None],
                                mcol.float()[:, None]], dim=1))
         root, base = bonus, new_base
-    return torch.stack(outs), root, base
+    return torch.stack(outs), root.reshape(()), base.reshape(())
 
 
 def launch(

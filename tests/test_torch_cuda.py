@@ -440,3 +440,38 @@ def test_nano_controller_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
             assert CA.cell_attention.launches > launches  # draft steps took the kernel
         streams[dev] = got
     assert streams["cuda"] == streams["cpu"]
+
+
+def test_nano_device_loops_on_card_match_cpu(cuda, tmp_path, monkeypatch):
+    """DeviceLoopEngine and the 4-lane DeviceLoopServer on slots 60-63 give
+    on the card the streams they give on the CPU, which are plain greedy;
+    the lanes' 4-row draft steps take the cell kernel."""
+    from pipeinfer_tpu_torch.spec.device_loop import DeviceLoopEngine
+    from pipeinfer_tpu_torch.spec.device_multi import DeviceLoopServer
+
+    monkeypatch.setenv("PIPEINFER_WEIGHT_LAYOUT", "i4g")
+    testmodel.build_bench_pair(tmp_path / "t.gguf", tmp_path / "d.gguf", scale="nano", eps=0.5)
+    prompts, n = [list(range(5, 25)), [1, 9, 33], [7] * 5, list(range(40, 47))], 40
+    greedy = SamplingParams(temp=0.0, penalty_repeat=1.0, penalty_last_n=0)
+    streams = {}
+    for dev in ("cpu", "cuda"):
+        tgt = load_model(tmp_path / "t.gguf", device=dev)
+        dft = load_model(tmp_path / "d.gguf", device=dev)
+
+        def ctx(m):
+            return InferenceContext(*m, n_cells=1024, device=dev)
+
+        eng = DeviceLoopEngine(ctx(tgt), ctx(dft), greedy, SpecParams(n_draft=6), eos_id=-1,
+                               rounds=4)
+        one = eng.generate(list(prompts[0]), n, ignore_eos=True)
+        srv = DeviceLoopServer(ctx(tgt), ctx(dft), greedy, SpecParams(n_draft=8), n_lanes=4,
+                               seq_base=60, rounds=4, eos_id=-1)
+        launches = CA.cell_attention.launches
+        hs = [srv.submit(p, n) for p in prompts]
+        srv.run_until_idle()
+        assert all(h.done and h.error is None for h in hs)
+        if dev == "cuda":
+            assert CA.cell_attention.launches > launches
+        streams[dev] = (one, [h.tokens for h in hs])
+    assert streams["cuda"] == streams["cpu"]
+    assert streams["cpu"][0] == streams["cpu"][1][0]
