@@ -24,7 +24,8 @@ Phases, each failing the run (non-zero exit, no result line) on a miss:
 5. the i8g path: the same on the toy-scale Q6_K pair, where every matmul
    goes through the i8g kernel;
 6. the CLI: `cli.main` and `cli.speculative --engine controller -np 1`
-   called in process on the 7B Q4_K pair under PIPEINFER_WEIGHT_LAYOUT=
+   called in process on the 7B Q4_K pair (its target cut to CLI_DEPTH
+   layers: six loads of it) under PIPEINFER_WEIGHT_LAYOUT=
    k_major, then i8, then k4, must print identical text, and each
    layout's kernel and the cell-attention kernel must have launched in the
    speculative run; on the toy pair under the default layout, `--engine
@@ -45,6 +46,23 @@ Phases, each failing the run (non-zero exit, no result line) on a miss:
    `error`, both engines served, the engine thread alive; last,
    DeviceLoopEngine on the toy Q6_K pair (every matmul through i8g, as a
    Q4_K_M file's Q6_K tensors) against plain greedy.
+8. arch, on the MPT-7B pair (mosaicml/mpt-7b's widths, Q4_K with a Q6_K
+   head, ALiBi; built into build/bench/ with a 2-layer live model whose
+   attn_output and ffn_down are non-zero): i4g at M = 1, 8 and 128 over
+   each of its 4-bit tensors, i8g at M = 1 and 8 over its 50432-row head
+   and cell attention at its heads with ALiBi over a bf16 and an f32
+   cache, each against its plain version and timed; the live model
+   (9-token prefill, 8 single-token steps on the cell kernel) on the card
+   against the port on the CPU within tools/live_check.LIVE_RTOL, and each
+   of live_check.FAULTS on the card past that bar; plain greedy, the
+   corrected controller, the controller over a 2- and a 4-stage
+   StagedInferenceContext and LookaheadDecoder (W 15, N 5, G 15) emit one
+   stream, each launching i4g, i8g and (but lookahead) cell attention, and
+   the host decode loop over 1, 2 and 4 stages is timed; cli.main,
+   cli.speculative --stages 2, cli.pipeline and cli.lookahead (the target
+   cut to CLI_DEPTH layers) print one text, and so does a `python -m
+   pipeinfer_tpu_torch.cli.pipeline` subprocess; eight other
+   architectures at toy width (f32 weights) on the card against the CPU.
 
 The last lines printed are the card line, one JSON line with a record per
 kernel, and {"ok": true, "device": {...}}. Details of every shape go to
@@ -605,7 +623,7 @@ def run_pair(label: str, scale: str, qtype_name: str, eps: float, n_predict: int
     import torch
 
     from pipeinfer_tpu_torch.models import load_model
-    from pipeinfer_tpu_torch.runtime.context import Batch, InferenceContext
+    from pipeinfer_tpu_torch.runtime.context import InferenceContext
     from pipeinfer_tpu_torch.sampling.samplers import SamplingParams
     from pipeinfer_tpu_torch.spec.controller import PipeInferController
     from pipeinfer_tpu_torch.spec.params import SpecParams
@@ -627,15 +645,7 @@ def run_pair(label: str, scale: str, qtype_name: str, eps: float, n_predict: int
     sp = SpecParams(n_draft=8, n_parallel=1, p_accept=0.1, p_split=0.9, max_inflight=4)
 
     def plain(n):
-        ctx = InferenceContext(tparams, tcfg, n_cells=n_cells)
-        b = Batch()
-        for i, t in enumerate(prompt):
-            b.add(t, i, 0, want_logits=(i == len(prompt) - 1))
-        first = int(np.argmax(ctx.decode(b)[-1]))
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        rest, _ = ctx.draft_chain(first, len(prompt), 0, n - 1, n_cand=0)
-        return [first] + rest, time.perf_counter() - t1
+        return _greedy(InferenceContext(tparams, tcfg, n_cells=n_cells), prompt, n)
 
     def controller(n):
         c = PipeInferController(InferenceContext(tparams, tcfg, n_cells=n_cells),
@@ -683,6 +693,7 @@ def run_pair(label: str, scale: str, qtype_name: str, eps: float, n_predict: int
 # the CLI entry points
 # ---------------------------------------------------------------------------
 
+CLI_DEPTH = 8  # layers of the target in the CLI runs that load it many times (drafts keep 5)
 CLI_PROMPT = "Once upon a time, there was a little robot who wanted to see the sea. Every day"
 CLI_GREEDY = ["--temp", "0", "--repeat-penalty", "1.0", "--repeat-last-n", "0", "--ignore-eos",
               "-c", "1024"]
@@ -992,7 +1003,7 @@ def _serve_checks(httpd, engine, counters: dict, n_predict: int, load_s: float) 
     import torch
 
     from pipeinfer_tpu_torch.cli.main import generate as cli_generate
-    from pipeinfer_tpu_torch.runtime.context import Batch, InferenceContext
+    from pipeinfer_tpu_torch.runtime.context import InferenceContext
     from pipeinfer_tpu_torch.sampling.samplers import SamplerState, SamplingParams
     from pipeinfer_tpu_torch.serving.server import _sampling_from_body
     from pipeinfer_tpu_torch.spec.controller import PipeInferController
@@ -1026,15 +1037,7 @@ def _serve_checks(httpd, engine, counters: dict, n_predict: int, load_s: float) 
     prompt = [1] + rng.integers(3, tgt.cfg.n_vocab, 31).tolist()
 
     def plain(n):
-        c = ctx(tgt)
-        b = Batch()
-        for i, t in enumerate(prompt):
-            b.add(t, i, 0, want_logits=(i == len(prompt) - 1))
-        first = int(np.argmax(c.decode(b)[-1]))
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        rest, _ = c.draft_chain(first, len(prompt), 0, n - 1, n_cand=0)
-        return [first] + rest, time.perf_counter() - t1
+        return _greedy(ctx(tgt), prompt, n)
 
     def timed(engine_fn, n):
         e = engine_fn()
@@ -1169,12 +1172,501 @@ def _serve_checks(httpd, engine, counters: dict, n_predict: int, load_s: float) 
 
 
 # ---------------------------------------------------------------------------
+# arch: the generic decoder, the staged pipeline and lookahead at MPT-7B width
+# ---------------------------------------------------------------------------
+
+ARCH_EPS = 0.02  # the MPT pair's draft disagreement, as for the 7B llama pair
+ARCH_CLI_N = 64  # tokens of each arch CLI call
+ARCH_N_CELLS = 1024
+ARCH_I4G = {  # (N, K) of every 4-bit tensor of MPT-7B
+    "wqkv": (12288, 4096), "wo": (4096, 4096), "w_up": (16384, 4096), "w_down": (4096, 16384),
+}
+# plain and draft steps, the verify bucket (draft 8: up to 9 rows, but the
+# controller's runs of at most 8), lookahead's verify batch (W 15, N 5, G
+# 15: up to 121 rows) padded
+ARCH_I4G_MS = (1, 8, 128)
+ARCH_HEAD = (50432, 4096)  # MPT-7B's Q6_K head, through i8g
+ARCH_HEAD_MS = (1, 8)  # a decode or draft step, the verify bucket
+ARCH_ATTN_T = (1, 4)
+ARCH_CACHE_DTYPES = ("bf16", "f32")  # --cache-dtype
+# The toy architectures keep f32 weights (no s8 rounding): a CPU emulation
+# (every matmul perturbed by 3e-7) moved their logits by at most 3.5e-4 of
+# max|logit|. The live model's bar, LIVE_RTOL, is tools/live_check's.
+TOY_RTOL = 5e-3  # of max|logit|
+TOY_ARCHS = {  # name -> (architecture, build_tiny_arch keywords); 2 layers, n_embd 256
+    "falcon": ("falcon", dict(n_kv_heads=1)),  # MQA, parallel residual, neox rope
+    "falcon40b": ("falcon", dict(n_kv_heads=2, attn_norm_2=True)),  # attn_norm_2, GQA
+    "starcoder": ("starcoder", dict(n_kv_heads=1)),  # learned positions, MQA
+    "persimmon": ("persimmon", {}),  # Q/K LayerNorm, relu2, partial neox rope
+    "refact": ("refact", dict(n_kv_heads=1)),  # ALiBi, RMSNorm, gated SiLU, MQA
+    "bloom": ("bloom", {}),  # tok_norm, ALiBi
+    "stablelm": ("stablelm", {}),  # partial neox rope, q/k/v biases
+    "gptneox": ("gptneox", {}),  # neox rope over a quarter of the head
+}
+
+
+def check_arch_shapes(records: dict, details: list):
+    """The kernels at the shapes the arch path gives them: i4g at M = 1, 8
+    and 128 over each of MPT-7B's 4-bit tensors, i8g at M = 1 and 8 over
+    its 50432-row head, each against its plain version with a bitwise
+    repeat; cell attention at MPT-7B's heads over 1024 cells whose
+    positions are shuffled against their index, with holes, T = 1 and 4,
+    with kv_cache.alibi_slopes(32, 8.0), over a bf16 and an f32 cache
+    (reached through attend). Each timed beside its plain version and its
+    bound; the rows go to each kernel's record under "arch"."""
+    import torch
+    import torch.nn.functional as F
+
+    from pipeinfer_tpu_torch.ops import cell_attention as CA
+    from pipeinfer_tpu_torch.runtime import kv_cache as KV
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    rows: dict = {"i4g_matmul": [], "i8g_matmul": [], "cell_attention": []}
+    cases = [("i4g", name, nk, m) for name, nk in ARCH_I4G.items() for m in ARCH_I4G_MS] + \
+        [("i8g", "output", ARCH_HEAD, m) for m in ARCH_HEAD_MS]
+    planes_key = planes = None
+    for layout, name, (n, k), m in cases:
+        if (layout, name) != planes_key:
+            planes = None
+            planes = _split_planes(layout, n, k, dev, g, copies_for(
+                n * k // 2 if layout == "i4g" else -(-k // 512) * 512 * n))
+            planes_key = (layout, name)
+        x = torch.randn(m, k, device=dev, generator=g)
+        kern, plain, ins, name_k, ops = _split_inputs(layout, x, planes)
+        err, scale = _check_repeat(kern, plain, ins[0], f"{name_k} {name} M={m}")
+        it = iter(range(1 << 30))
+        k_ms = gpu_ms(lambda: kern(*ins[next(it) % len(ins)]), iters=20)
+        p_ms = gpu_ms(lambda: plain(*ins[0]), iters=3, warmup=1)
+        b_ms, b_by = bound(nbytes(*ins[0]) + m * n * 4, ops, "int8")
+        row = dict(kernel=name_k, tensor=f"mpt7b {name}", N=n, K=k, M=m, max_abs_err=err,
+                   tol=MATMUL_RTOL * scale, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                   plan=_cut(kern), phase="arch")
+        rows[name_k].append(row)
+        details.append(row)
+        log(f"{name_k:11s} mpt7b {name:7s} [{n}x{k}] M={m:3d}: err {err:.3g} "
+            f"(tol {MATMUL_RTOL * scale:.3g}), two calls bitwise equal  kernel {k_ms:.4f} ms"
+            f"  plain {p_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  cut {_cut(kern)}")
+        del ins
+    del planes
+
+    h, d, c = 32, 128, ARCH_N_CELLS
+    slopes = KV.alibi_slopes(h, 8.0, device=dev)
+    # a cache after seq_rm and reuse: positions in no order against the
+    # cell index, a run of freed cells between live ones
+    pos = torch.randperm(c, device=dev, generator=g).to(torch.int32)
+    pos[200:232] = -1
+    seq = torch.zeros(c, KV.SEQ_WORDS, dtype=torch.int32, device=dev)
+    seq[pos >= 0, 0] = 1
+    for dtype_name in ARCH_CACHE_DTYPES:
+        dtype = torch.bfloat16 if dtype_name == "bf16" else torch.float32
+        kc, vc = (t.to(dtype) for t in _attn_cache(h, d, c, dev, g))
+        n_l = kc.shape[0]
+        for t in ARCH_ATTN_T:
+            q = torch.randn(t, h, d, device=dev, generator=g)
+            tok_pos = torch.arange(c, c + t, dtype=torch.int32, device=dev)
+            tok_seq = torch.zeros(t, dtype=torch.int32, device=dev)
+            valid = torch.ones(t, dtype=torch.bool, device=dev)
+            args = (q, kc, vc, pos, seq, tok_pos, tok_seq, valid)
+            # through attend, as a step reaches it: the kernel, for either dtype
+            cache = KV.KVCache(kc, vc, pos, seq)
+            before = CA.cell_attention.launches
+            got = KV.attend(q, cache, 1, KV.attn_mask(cache, tok_pos, tok_seq), tok_pos,
+                            tok_seq, valid, scale=d ** -0.5, alibi=slopes)
+            if CA.cell_attention.launches != before + 1:
+                raise AssertionError(f"attend did not launch the cell kernel on a {dtype_name} "
+                                     f"cache at T={t}")
+            want = CA._cell_attention_plain(*args, 1, d ** -0.5, slopes, c)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            if not err <= ATTN_ATOL:
+                raise AssertionError(f"cell_attention T={t} MPT-7B heads, ALiBi, {dtype_name} "
+                                     f"cache: max err {err}")
+            it = iter(range(1 << 30))
+            k_ms = gpu_ms(lambda: CA.cell_attention(*args, layer=next(it) % n_l,
+                                                    scale=d ** -0.5, alibi=slopes))
+            p_ms = gpu_ms(lambda: CA._cell_attention_plain(*args, 1, d ** -0.5, slopes, c),
+                          iters=3, warmup=1)
+            # library call: SDPA with the visibility and ALiBi bias as one
+            # additive mask, in the cache's dtype
+            mask = (torch.where((pos >= 0)[None, :], 0.0, -1e9)
+                    + slopes[:, None, None] * pos.clamp_min(0).float()[None, None, :])
+            mask = mask.expand(h, t, c)[None].to(dtype)
+            qb = q.to(dtype).transpose(0, 1)[None]
+            kv = [(kc[i][None], vc[i][None]) for i in range(n_l)]
+            it2 = iter(range(1 << 30))
+
+            def sdpa():
+                kl, vl = kv[next(it2) % n_l]
+                return F.scaled_dot_product_attention(qb, kl, vl, attn_mask=mask)
+
+            lib_ms = gpu_ms(sdpa)
+            io = 2 * h * c * d * kc.element_size() \
+                + nbytes(q, tok_pos, tok_seq, valid, slopes) + c * 4 * (1 + KV.SEQ_WORDS) \
+                + t * h * d * 4
+            b_ms, b_by = bound(io, 4 * t * h * c * d, "f32")
+            row = dict(kernel="cell_attention", T=t, H=h, KVH=h, D=d, C=c, alibi=True,
+                       cache=dtype_name, max_abs_err=err, tol=ATTN_ATOL, ms=k_ms, plain_ms=p_ms,
+                       library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, phase="arch")
+            rows["cell_attention"].append(row)
+            details.append(row)
+            log(f"cell_attention T={t} H=KVH=32 D=128 C={c} ALiBi(32, 8.0) {dtype_name} cache, "
+                f"shuffled positions: err {err:.3g} (tol {ATTN_ATOL})  kernel {k_ms:.4f} ms  "
+                f"plain {p_ms:.4f} ms  SDPA {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+            del kv
+        del kc, vc
+    for key, src, tpu in (
+        ("i4g_matmul", "pipeinfer_tpu_torch/csrc/qmatmul_i4g.cu", "pipeinfer_tpu/ops/qmatmul.py:784"),
+        ("i8g_matmul", "pipeinfer_tpu_torch/csrc/qmatmul_i8g.cu", "pipeinfer_tpu/ops/qmatmul.py:923"),
+        ("cell_attention", "pipeinfer_tpu_torch/csrc/cell_attention.cu",
+         "pipeinfer_tpu/ops/cell_attention.py:27"),
+    ):
+        keep = ("M", "N", "K", "T", "C", "cache", "ms", "plain_ms", "bound_ms", "bound_by",
+                "max_abs_err", "library_ms")
+        arch_rows = [{f: r[f] for f in keep if f in r} for r in rows[key]]
+        if key not in records:  # an arch-only run: its first shape stands for the kernel
+            r = rows[key][0]
+            records[key] = dict(name=key, route="cuda", source=src, replaces=tpu, launches=0,
+                                max_abs_err=max(x["max_abs_err"] for x in rows[key]),
+                                ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                                bound_by=r["bound_by"], library_ms=r.get("library_ms"),
+                                shape=f"arch phase, {arch_rows[0]}")
+        records[key]["arch"] = arch_rows
+
+
+def _greedy(ctx, prompt, n, chain: bool = True):
+    """Greedy decoding: the prefill's argmax, then n - 1 tokens as one
+    on-device chain (chain: InferenceContext.draft_chain without
+    candidates) or one host step at a time through ctx.decode (as
+    cli.pipeline decodes; any context). Returns (tokens, seconds of the n -
+    1 tokens)."""
+    import numpy as np
+
+    from pipeinfer_tpu_torch.runtime.context import Batch
+
+    b = Batch()
+    for i, t in enumerate(prompt):
+        b.add(t, i, 0, want_logits=(i == len(prompt) - 1))
+    out = [int(np.argmax(ctx.decode(b)[-1]))]
+    t1 = time.perf_counter()
+    if chain:
+        out += ctx.draft_chain(out[0], len(prompt), 0, n - 1, n_cand=0)[0]
+    else:
+        for i in range(n - 1):
+            b = Batch()
+            b.add(out[-1], len(prompt) + i, 0)
+            out.append(int(np.argmax(ctx.decode(b)[0])))
+    return out, time.perf_counter() - t1
+
+
+def run_arch_streams(counters: dict, pair, n_predict: int) -> dict:
+    """On the MPT pair, loaded once: plain greedy decoding, the
+    PipeInferController (device-corrected), the controller over a 2- and a
+    4-stage StagedInferenceContext (--layer-split 0.5,0.5 and an even
+    4-way split) and LookaheadDecoder (W 15, N 5, G 15) on the main phase's
+    prompt; every stream equal to plain greedy's, and i4g, i8g and cell
+    attention launched in each run (cell attention not in lookahead's,
+    whose steps are 60 or more rows and take the dense path)."""
+    import numpy as np
+    import torch
+
+    from pipeinfer_tpu_torch.models import load_model
+    from pipeinfer_tpu_torch.parallel.stages import StagedInferenceContext
+    from pipeinfer_tpu_torch.runtime.context import InferenceContext
+    from pipeinfer_tpu_torch.sampling.samplers import SamplingParams
+    from pipeinfer_tpu_torch.spec.controller import PipeInferController
+    from pipeinfer_tpu_torch.spec.lookahead import LookaheadDecoder
+    from pipeinfer_tpu_torch.spec.params import SpecParams
+
+    t0 = time.perf_counter()
+    tparams, tcfg = load_model(pair[0])
+    dparams, dcfg = load_model(pair[1])
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    log(f"[arch] loaded the {tcfg.arch} pair: {tcfg.n_layers}L target + {dcfg.n_layers}L draft "
+        f"(n_embd {tcfg.n_embd}, {tcfg.n_heads} heads, n_ff {tcfg.n_ff}, vocab {tcfg.n_vocab}, "
+        f"ALiBi max bias {tcfg.max_alibi_bias}) in {load_s:.1f} s")
+    rng = np.random.default_rng(SEED)
+    prompt = [1] + rng.integers(3, tcfg.n_vocab, 31).tolist()
+    greedy = SamplingParams(temp=0.0, penalty_repeat=1.0, penalty_last_n=0)
+    sp = SpecParams(n_draft=8, n_parallel=1, p_accept=0.1, p_split=0.9, max_inflight=4)
+
+    def ctx(params, cfg):
+        return InferenceContext(params, cfg, n_cells=ARCH_N_CELLS)
+
+    def staged(n_stages):
+        return StagedInferenceContext(tparams, tcfg, n_cells=ARCH_N_CELLS,
+                                      devices=["cuda"] * n_stages, split=[1.0] * n_stages)
+
+    def controller(tgt):
+        return PipeInferController(tgt, ctx(dparams, dcfg), greedy, sp, eos_id=-1)
+
+    engines = {
+        "controller": lambda: controller(ctx(tparams, tcfg)),
+        "staged2": lambda: controller(staged(2)),
+        "staged4": lambda: controller(staged(4)),
+        "lookahead": lambda: LookaheadDecoder(ctx(tparams, tcfg), greedy, W=15, N=5, G=15,
+                                              eos_id=-1, topk=128),
+    }
+    _greedy(ctx(tparams, tcfg), prompt, 8)  # warm-up: allocator and library state
+    controller(ctx(tparams, tcfg)).generate(list(prompt), 16, ignore_eos=True)
+    res = dict(label="arch_streams", arch=tcfg.arch, load_s=load_s, n_predict=n_predict,
+               prompt_len=len(prompt), n_cells=ARCH_N_CELLS, engines={})
+    for c in counters.values():
+        c.launches = 0
+    want, t_plain = _greedy(ctx(tparams, tcfg), prompt, n_predict)
+    res["engines"]["plain"] = dict(tok_s=(n_predict - 1) / t_plain,
+                                   launches={k: c.launches for k, c in counters.items()})
+    for name, make in engines.items():
+        eng = make()
+        for c in counters.values():
+            c.launches = 0
+        t1 = time.perf_counter()
+        got = eng.generate(list(prompt), n_predict, ignore_eos=True)
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t1
+        launches = {k: c.launches for k, c in counters.items()}
+        if got != want:
+            first = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+            raise AssertionError(f"[arch] {name} differs from plain greedy at token {first}: "
+                                 f"{got[first:first + 8]} vs {want[first:first + 8]}")
+        st = eng.stats
+        if name == "lookahead":
+            row = dict(tok_s=n_predict / took, n_accept=st.n_accept,
+                       acceptance=st.n_accept / max(st.n_predict, 1))
+        else:
+            row = dict(tok_s=n_predict / took, n_accept=st.n_accept, n_drafted=st.n_drafted,
+                       acceptance=st.n_accept / max(st.n_drafted, 1), runs=eng.metrics.n_runs,
+                       mode="corrected" if eng.use_corrected else
+                       ("fused" if eng.use_fused else "host"))
+        row["launches"] = launches
+        res["engines"][name] = row
+        del eng
+    # what staging costs on one device: the host decode loop through one
+    # context and through 2 and 4 stages (the same launches per layer, plus
+    # each stage's mask and metadata writes and its hand-off)
+    n_loop = min(32, n_predict)
+    makers = {"single": lambda: ctx(tparams, tcfg), "staged2": lambda: staged(2),
+              "staged4": lambda: staged(4)}
+    loop: dict = {name: [] for name in makers}
+    for name in ("single", "staged2", "staged4", "staged4", "staged2", "single"):  # in turns
+        got, took = _greedy(makers[name](), prompt, n_loop, chain=False)
+        if got != want[:n_loop]:
+            raise AssertionError(f"[arch] the {name} decode loop differs from plain greedy")
+        loop[name].append((n_loop - 1) / took)
+    res["decode_loop_tok_s"] = loop
+    log(f"[arch] host decode loop, {n_loop} tokens, in turns: " + ", ".join(
+        f"{k} {' / '.join(f'{v:.1f}' for v in vs)} tok/s" for k, vs in loop.items()))
+    for name, row in res["engines"].items():
+        need = ("i4g_matmul", "i8g_matmul") + (() if name == "lookahead" else ("cell_attention",))
+        for k in need:
+            if row["launches"][k] == 0:
+                raise AssertionError(f"[arch] {name} never launched {k}")
+        log(f"[arch] {name:10s} == plain greedy over {n_predict} tokens: {row['tok_s']:.1f} tok/s"
+            + (f", acceptance {row['acceptance']:.3f}" if "acceptance" in row else "")
+            + (f" ({row['mode']})" if "mode" in row else "")
+            + f"; launches i4g {row['launches']['i4g_matmul']}, i8g "
+              f"{row['launches']['i8g_matmul']}, cell attention "
+              f"{row['launches']['cell_attention']}")
+    del tparams, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_arch_live(counters: dict, live_path) -> dict:
+    """The 2-layer MPT model with non-zero attn_output and ffn_down, at full
+    width (tools/live_check): a 9-token prefill (dense path, T padded to 32)
+    and 8 single-token steps (the cell kernel with ALiBi, 1024 cells) on
+    the card, then the same steps through the port on the CPU on the same
+    weight planes: the logits within LIVE_RTOL of max|logit|. Then the card
+    again under each of live_check.FAULTS, each of which must move the
+    logits past that bar."""
+    import numpy as np
+    import torch
+
+    from pipeinfer_tpu_torch.models import load_model
+    from pipeinfer_tpu_torch.tools import live_check as LC
+
+    params, cfg = load_model(live_path)
+    toks = LC.live_tokens(cfg.n_vocab, SEED + 5)
+    cuda = torch.device("cuda")
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    got = LC.run_live(params, cfg, toks, cuda)
+    card_s = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    t0 = time.perf_counter()
+    want = LC.run_live(params, cfg, toks, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    scale = float(np.abs(want).max())
+    rel = LC.spread(got, want)
+    if not (np.isfinite(got).all() and got.shape == want.shape and rel <= LC.LIVE_RTOL):
+        raise AssertionError(f"[arch] live MPT on the card against the CPU: {rel:.4g} of "
+                             f"max|logit| {scale} (tol {LC.LIVE_RTOL})")
+    if launches["cell_attention"] != LC.STEPS * cfg.n_layers:
+        raise AssertionError(f"[arch] live MPT: {launches['cell_attention']} cell-attention "
+                             f"launches, want {LC.STEPS * cfg.n_layers} (the single-token steps)")
+    # the spread one other f32 order makes, at this width on the card: its
+    # own run with every quantized matmul moved by 3e-7, against its plain run
+    with LC.perturbed_matmuls():
+        order = LC.spread(LC.run_live(params, cfg, toks, cuda), got)
+    faults = {}
+    for name in LC.FAULTS:
+        with LC.fault(name):
+            faults[name] = LC.spread(LC.run_live(params, cfg, toks, cuda), want)
+    missed = [n for n, v in faults.items() if not v > LC.LIVE_RTOL]
+    argmax = float((got.argmax(1) == want.argmax(1)).mean())
+    log(f"[arch] live {cfg.n_layers}L MPT (non-zero attn_output): {LC.PREFILL}-token prefill + "
+        f"{LC.STEPS} steps, card vs CPU {rel:.4g} of max|logit| {scale:.4g} (tol "
+        f"{LC.LIVE_RTOL}), argmax equal on {argmax:.3f} of rows; card {card_s:.1f} s, CPU "
+        f"{cpu_s:.1f} s; launches {launches}; another f32 order on the card {order:.4g}")
+    log("[arch] live MPT on the card under each fault, against the CPU: " + ", ".join(
+        f"{n} {v:.4g}" for n, v in faults.items()) + " of max|logit|")
+    if missed:
+        raise AssertionError(f"[arch] live MPT: the {LC.LIVE_RTOL} bar lets {missed} through")
+    del params
+    gc.collect()
+    return dict(label="arch_live", n_layers=cfg.n_layers, max_logit=scale, rel_err=rel,
+                tol=LC.LIVE_RTOL, argmax_equal=argmax, f32_order=order, faults=faults,
+                launches=launches)
+
+
+def run_arch_toys(counters: dict, out_dir: Path) -> dict:
+    """The other architectures at toy widths (2 layers, n_embd 256, f32
+    weights from a seed) through a 512-cell context on the card, whose T =
+    1 steps take the cell kernel, against the port on the CPU: logits
+    within TOY_RTOL of max|logit|."""
+    import numpy as np
+    import torch
+
+    from pipeinfer_tpu_torch.models import load_model
+    from pipeinfer_tpu_torch.runtime.context import Batch, InferenceContext
+    from pipeinfer_tpu_torch.tools import testmodel
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    res = {}
+    for name, (arch, kw) in TOY_ARCHS.items():
+        path = testmodel.build_tiny_arch(out_dir / f"{name}.gguf", arch, seed=SEED, n_layers=2,
+                                         n_embd=256, n_heads=4, n_ff=1024, n_vocab=1024, **kw)
+        params, cfg = load_model(path)
+        outs, launches = [], None
+        for d in ("cuda", "cpu"):
+            for c in counters.values():
+                c.launches = 0
+            ctx = InferenceContext(params, cfg, n_cells=512, device=d)
+            b = Batch()
+            for i, t in enumerate([1, 17, 200, 33, 5, 9, 71, 8, 99]):
+                b.add(t, i, 0)
+            rows = [ctx.decode(b)]
+            for j in range(8):
+                b = Batch()
+                b.add(40 + j, 9 + j, 0)
+                rows.append(ctx.decode(b))
+            outs.append(np.concatenate(rows))
+            if launches is None:
+                launches = {k: c.launches for k, c in counters.items()}
+        scale = float(np.abs(outs[1]).max())
+        err = float(np.abs(outs[0] - outs[1]).max())
+        if not (np.isfinite(outs[0]).all() and err <= TOY_RTOL * scale):
+            raise AssertionError(f"[arch] {name} on the card against the CPU: max err {err} "
+                                 f"(max|logit| {scale}, tol {TOY_RTOL} of it)")
+        if launches["cell_attention"] != 8 * cfg.n_layers:
+            raise AssertionError(f"[arch] {name}: {launches['cell_attention']} cell-attention "
+                                 f"launches, want {8 * cfg.n_layers}")
+        res[name] = dict(max_abs_err=err, max_logit=scale, rel_err=err / scale,
+                         cell_attention=launches["cell_attention"], heads=cfg.n_heads,
+                         kv_heads=cfg.n_kv_heads, rope=cfg.rope_mode, rope_dims=cfg.rope_dims,
+                         alibi=cfg.max_alibi_bias)
+        log(f"[arch] {name:9s} ({cfg.n_heads}/{cfg.n_kv_heads} heads, rope {cfg.rope_mode} "
+            f"{cfg.rope_dims}, ALiBi {cfg.max_alibi_bias}): card vs CPU {err / scale:.3g} of "
+            f"max|logit| (tol {TOY_RTOL}); cell attention {launches['cell_attention']} launches")
+    return dict(label="arch_toys", tol=TOY_RTOL, archs=res)
+
+
+def run_arch_clis(counters: dict, pair, n_predict: int) -> dict:
+    """cli.main, cli.speculative --stages 2 --engine controller -np 1,
+    cli.pipeline --layer-split 0.5,0.5 and cli.lookahead, in process on the
+    MPT pair as a user runs them (without --device), then one `python -m
+    pipeinfer_tpu_torch.cli.pipeline` subprocess: the same text from all
+    five."""
+    from pipeinfer_tpu_torch.cli import lookahead as cli_lookahead
+    from pipeinfer_tpu_torch.cli import main as cli_main
+    from pipeinfer_tpu_torch.cli import pipeline as cli_pipeline
+    from pipeinfer_tpu_torch.cli import speculative as cli_spec
+
+    t_path, d_path = map(str, pair)
+    common = ["-m", t_path, "-p", CLI_PROMPT, "-n", str(n_predict), *CLI_GREEDY]
+    split = ["--layer-split", "0.5,0.5"]
+    calls = {
+        "speculative_stages2": (cli_spec.main, ["-md", d_path, "--stages", "2", "--engine",
+                                                "controller", "-np", "1"]),
+        "pipeline": (cli_pipeline.main, split),
+        "lookahead": (cli_lookahead.main, []),
+    }
+    res = dict(label="arch_clis", n_predict=n_predict, launches={})
+    with _layout(None):
+        want, res["main_s"] = _cli_text(cli_main.main, common)
+        for name, (entry, extra) in calls.items():
+            for c in counters.values():
+                c.launches = 0
+            got, res[f"{name}_s"] = _cli_text(entry, common + extra)
+            res["launches"][name] = {k: c.launches for k, c in counters.items()}
+            if got != want:
+                raise AssertionError(f"[arch cli {name}] printed {got[-200:]!r}, cli.main "
+                                     f"{want[-200:]!r}")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "pipeinfer_tpu_torch.cli.pipeline",
+                               *common, *split], cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        res["subprocess_s"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m pipeinfer_tpu_torch.cli.pipeline exited "
+                             f"{proc.returncode}:\n{proc.stderr[-2000:]}")
+    if proc.stdout != want:
+        raise AssertionError(f"[arch cli subprocess] printed {proc.stdout[-200:]!r}, cli.main "
+                             f"{want[-200:]!r}")
+    res.update(chars=len(want), text_sha256=hashlib.sha256(want.encode()).hexdigest())
+    log(f"[arch] cli.main, cli.speculative --stages 2, cli.pipeline, cli.lookahead and the "
+        f"pipeline subprocess print the same {len(want)} characters ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in res.items() if k.endswith("_s")) + " s)")
+    return res
+
+
+def run_arch(counters: dict, records: dict, n_predict: int) -> list:
+    """The arch phase after its kernel checks: the streams, the CLIs, the
+    toy architectures and the live model. Returns its run records and adds
+    each kernel's launches per arch run to its record."""
+    from pipeinfer_tpu_torch.tools.benchpair import cached_mpt_pair, cut_depth
+
+    bench = ROOT / "build" / "bench"
+    t_path, d_path, live_path = cached_mpt_pair(bench, ARCH_EPS, log=log)
+    # the CLIs load the target five times: they take it cut to CLI_DEPTH
+    # layers (the pair's stream does not depend on its depth)
+    cli_target = cut_depth(t_path, t_path.with_name(f"target_d{CLI_DEPTH}.gguf"), CLI_DEPTH,
+                           log=log)
+    runs = [run_arch_streams(counters, (t_path, d_path), n_predict),
+            run_arch_clis(counters, (cli_target, d_path), ARCH_CLI_N),
+            run_arch_toys(counters, bench / "toy_archs"),
+            run_arch_live(counters, live_path)]
+    per_run = {f"{name}": row["launches"] for name, row in runs[0]["engines"].items()}
+    per_run.update({f"cli_{k}": v for k, v in runs[1]["launches"].items()})
+    per_run["live"] = runs[3]["launches"]
+    for k, rec in records.items():
+        rec["launches_arch"] = {run: n[k] for run, n in per_run.items()}
+        if not rec.get("launches"):  # an arch-only run: the MPT controller's count
+            rec["launches"] = per_run["controller"][k]
+    return runs
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="kernels,main,i8g,cli,serve",
-                    help="comma list of kernels, main, i8g, cli, serve (default: all); "
+    ap.add_argument("--phases", default="kernels,main,i8g,cli,serve,arch",
+                    help="comma list of kernels, main, i8g, cli, serve, arch (default: all); "
                          "qmatmul runs only the i4g and i8g part of kernels, exact only the "
                          "k_major, i8 and k4 part")
     ap.add_argument("--n-predict", type=int, default=128)
@@ -1239,13 +1731,17 @@ def main() -> int:
         if "i8g_matmul" in records:
             records["i8g_matmul"]["launches"] = runs[-1]["launches"]["i8g_matmul"]
     if "cli" in phases:
-        from pipeinfer_tpu_torch.tools.benchpair import cached_bench_pair
+        from pipeinfer_tpu_torch.tools.benchpair import cached_bench_pair, cut_depth
 
         bench = ROOT / "build" / "bench"
         pair_7b = cached_bench_pair(bench, "7b", "Q4_K", 0.02, log=log)
+        # the layouts' CLI runs load the target six times: its depth is cut
+        # (the bench pair's stream does not depend on it) to keep the run short
+        pair_7b = (cut_depth(pair_7b[0], pair_7b[0].with_name(f"target_d{CLI_DEPTH}.gguf"),
+                             CLI_DEPTH, log=log), pair_7b[1])
         for layout, kernel in (("k_major", "kmajor_matmul"), ("i8", "i8_matmul"),
                                ("k4", "k4_matmul")):
-            label = f"cli_{layout}_{pair_7b[0].parent.name}"
+            label = f"cli_{layout}_{pair_7b[0].parent.name}_d{CLI_DEPTH}"
             runs.append(run_cli_layout(label, layout, pair_7b, args.n_predict, counters, kernel))
             if kernel in records:
                 records[kernel]["launches"] = runs[-1]["launches"][kernel]
@@ -1262,6 +1758,11 @@ def main() -> int:
         for k, rec in records.items():  # launches per serve run, beside the main path's
             rec["launches_serve"] = {run: n[k] for run, n in runs[-1]["launches"].items()}
         log(f"[serve] phase took {time.perf_counter() - t0:.1f} s")
+    if "arch" in phases:
+        t0 = time.perf_counter()
+        check_arch_shapes(records, details)
+        runs.extend(run_arch(counters, records, args.n_predict))
+        log(f"[arch] phase took {time.perf_counter() - t0:.1f} s")
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -2,13 +2,13 @@
 speculation driver (ref: examples/speculative/speculative.cpp CLI + metrics
 :693-730; --sync is the lock-step baseline of examples/speculative_orig).
 
-Port of pipeinfer_tpu.cli.speculative for its one-device engines: the
-async PipeInfer controller (device-corrected with -np 1 and a device-
-expressible sampler, host-verified trees otherwise), the device-resident
-loop (spec/device_loop.py; what --engine auto picks where it applies) and
-the lock-step baseline. Staged targets are not ported yet: --stages > 1
-exits with an error naming their ROADMAP.md item instead of running
-another engine.
+Port of pipeinfer_tpu.cli.speculative: the async PipeInfer controller
+(device-corrected with -np 1 and a device-expressible sampler, host-
+verified trees otherwise), the device-resident loop (spec/device_loop.py;
+what --engine auto picks where it applies) and the lock-step baseline.
+--stages N pipelines the target over N stages (parallel/stages.py), which
+share the one device of --device; the draft stays a single context, and a
+staged target keeps the controller.
 """
 
 from __future__ import annotations
@@ -29,8 +29,7 @@ from .args import (
     sampling_from_args,
 )
 from .main import build_context
-
-_STAGES = 'ROADMAP.md queue 1, "Other architectures and stages"'
+from .pipeline import build_staged_context, parse_split
 
 
 def spec_from_args(args) -> SpecParams:
@@ -67,10 +66,10 @@ def main(argv=None):
     p.add_argument("--loop-rounds", type=int, default=8,
                    help="speculative rounds per device-loop dispatch")
     p.add_argument("--stages", type=int, default=1,
-                   help=f"pipeline the target over N stages (not ported yet: {_STAGES})")
+                   help="pipeline the target over N stages (the full PipeInfer "
+                   "topology; the draft stays one context)")
     p.add_argument("--layer-split", default="",
-                   help="stage weights for --stages (accepted for command-line "
-                   "compatibility; no effect until stages are ported)")
+                   help="stage weights for --stages (e.g. 0.1,0.45,0.45)")
     p.add_argument("-dkvc", "--dump-kv-cache", action="store_true",
                    help="print per-cell KV occupancy after generation "
                    "(ref: dump_kv_cache_view_seqs, the rollback debug aid)")
@@ -81,9 +80,6 @@ def main(argv=None):
         args.device_loop = True
     elif args.engine == "controller":
         args.sync = args.device_loop = False
-    if args.stages > 1:
-        raise SystemExit(f"error: --stages > 1 is not ported to pipeinfer_tpu_torch yet "
-                         f"({_STAGES})")
 
     sp = spec_from_args(args)
     sampling = sampling_from_args(args)
@@ -92,10 +88,19 @@ def main(argv=None):
         grammar_text = args.grammar or open(args.grammar_file).read()
     if args.engine == "auto" and not args.sync:
         # on-device verification wherever it applies; tree drafting
-        # (-np > 1) keeps the controller
-        args.device_loop = sp.n_parallel == 1 and device_loop.supported(sampling, grammar_text)
+        # (-np > 1) and staged targets keep the controller
+        args.device_loop = (args.stages == 1 and sp.n_parallel == 1
+                            and device_loop.supported(sampling, grammar_text))
 
-    ctx_tgt, tok = build_context(args.model, args.ctx_size, args.cache_dtype, device=args.device)
+    if args.stages > 1:
+        ctx_tgt, tok = build_staged_context(args.model, args.ctx_size, args.cache_dtype,
+                                            args.stages, parse_split(args.layer_split),
+                                            device=args.device)
+        print(f"target pipeline: {args.stages} stages, ranges {ctx_tgt.ranges}",
+              file=sys.stderr)
+    else:
+        ctx_tgt, tok = build_context(args.model, args.ctx_size, args.cache_dtype,
+                                     device=args.device)
     ctx_dft, _ = build_context(args.model_draft, args.ctx_size, args.cache_dtype,
                                need_tokenizer=False, device=args.device)
     if ctx_tgt.cfg.n_vocab != ctx_dft.cfg.n_vocab:
@@ -122,9 +127,9 @@ def main(argv=None):
         sys.stdout.write(sdec.feed(t))
         sys.stdout.flush()
 
-    if args.device_loop and not device_loop.supported(sampling, grammar):
-        print("warning: --device-loop unsupported for this config (stateful sampler "
-              "chain); using the async controller", file=sys.stderr)
+    if args.device_loop and (args.stages > 1 or not device_loop.supported(sampling, grammar)):
+        print("warning: --device-loop unsupported for this config (multi-stage target / "
+              "stateful sampler chain); using the async controller", file=sys.stderr)
         args.device_loop = False
     metrics = None
     if args.sync:

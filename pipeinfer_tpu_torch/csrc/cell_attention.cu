@@ -3,7 +3,8 @@
 //
 // Replaces the Pallas kernel pipeinfer_tpu/ops/cell_attention.py::_kernel
 // (wrapper cell_attention). Query rows of one step attend the cells [0, hot)
-// of one static layer of the [L, KVH, C, D] bf16 cache. A cell is visible to
+// of one static layer of the [L, KVH, C, D] cache, bf16 (the default) or f32
+// (--cache-dtype f32), as the TPU kernel reads either. A cell is visible to
 // a row when the row's seq bit is set in the cell's bitmask word, the cell's
 // position is >= 0 and <= the token's position, and the row is valid. The
 // score is q.k * scale, plus 0 (visible) or -1e9 (masked) — an additive
@@ -15,7 +16,7 @@
 // l == 0 -> 1 guard.
 //
 // What bounds it on the H100: bytes. At decode T each K and V element
-// (2 B each) feeds T * G rows, at most 16 f32 operations per byte at the
+// (2 B each in a bf16 cache) feeds T * G rows, at most 16 f32 operations per byte at the
 // main path's rows, below the ~20 where the f32 cores would bind; the floor
 // is one pass over K and V of [0, hot) for the layer (20 us at C = 4096,
 // 32 heads of 128). So the design keeps many bytes in flight on every SM:
@@ -31,8 +32,9 @@
 //    32 KV heads that is 19 splits (608 blocks) at C = 4096 and 16 (512
 //    blocks) at C = 1024.
 // 2. No staging of K/V. A block is 128 threads; a group of GS lanes
-//    (8 * GS >= D) takes U = 2 cells per step, each lane loading 16 B (8 bf16)
-//    of each cell's K row and V row straight into registers, and loads the
+//    (8 * GS >= D) takes U = 2 cells per step, each lane loading 8 elements
+//    (16 B of bf16, two 16 B loads of f32: Vec8 below) of each cell's K row
+//    and V row straight into registers, and loads the
 //    next step's K, V and metadata before it computes the current one. The
 //    block's RT query rows (GQA groups folded in, row = t * G + g) sit in
 //    registers, 8 columns per lane. The U * RT partial dots of a lane are
@@ -81,8 +83,8 @@ constexpr unsigned FULL = 0xffffffffu;
 
 struct Args {
   const float* q;               // [T, H, D]
-  const __nv_bfloat16* k;       // [L, KVH, C, D]
-  const __nv_bfloat16* v;
+  const void* k;                // [L, KVH, C, D] of E (bf16 or f32)
+  const void* v;
   const int* cell_pos;          // [C]
   const uint32_t* cell_seq;     // [C, W]
   const int* tok_pos;           // [T]
@@ -106,10 +108,40 @@ __device__ __forceinline__ void bf16x8(const uint4& raw, float (&f)[8]) {
   }
 }
 
+// Eight consecutive cache elements of type E, loaded in 16 B pieces and
+// widened to f32.
+template <typename E>
+struct Vec8;
+
+template <>
+struct Vec8<__nv_bfloat16> {
+  uint4 raw;
+  __device__ __forceinline__ void zero() { raw = make_uint4(0u, 0u, 0u, 0u); }
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    raw = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ void widen(float (&f)[8]) const { bf16x8(raw, f); }
+};
+
+template <>
+struct Vec8<float> {
+  float4 lo, hi;
+  __device__ __forceinline__ void zero() { lo = hi = make_float4(0.f, 0.f, 0.f, 0.f); }
+  __device__ __forceinline__ void load(const float* p) {
+    lo = __ldg(reinterpret_cast<const float4*>(p));
+    hi = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  }
+  __device__ __forceinline__ void widen(float (&f)[8]) const {
+    f[0] = lo.x; f[1] = lo.y; f[2] = lo.z; f[3] = lo.w;
+    f[4] = hi.x; f[5] = hi.y; f[6] = hi.z; f[7] = hi.w;
+  }
+};
+
 // What one lane holds of its group's U cells for one step: their K and V
 // columns, and the position and seq word of the cell of its own pair.
+template <typename E>
 struct Step {
-  uint4 k[U], v[U];
+  Vec8<E> k[U], v[U];
   int pos;
   uint32_t word;
 };
@@ -133,7 +165,7 @@ __device__ __forceinline__ void reduce_scatter(float (&dp)[M], int j) {
   }
 }
 
-template <int GS, int RT>
+template <int GS, int RT, typename E>
 __global__ void __launch_bounds__(THREADS, blocks_per_sm(RT)) split_kernel(const Args a) {
   constexpr int NG = THREADS / GS;  // lane groups per block
   constexpr int STEP = NG * U;      // cells per block step
@@ -184,18 +216,19 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(RT)) split_kernel(const
     for (int e = 0; e < 8; ++e) acc[r][e] = 0.f;
 
   const size_t head = ((size_t)a.layer * a.KVH + kvh) * (size_t)a.C * a.D + 8 * j;
-  const __nv_bfloat16* kh = a.k + head;
-  const __nv_bfloat16* vh = a.v + head;
+  const E* kh = static_cast<const E*>(a.k) + head;
+  const E* vh = static_cast<const E*>(a.v) + head;
 
   // this group's cells of the block step at cb: cb + grp * U + u
-  auto fetch = [&](Step& st, int cb) {
+  auto fetch = [&](Step<E>& st, int cb) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int c = cb + grp * U + u;
-      st.k[u] = st.v[u] = make_uint4(0u, 0u, 0u, 0u);
+      st.k[u].zero();
+      st.v[u].zero();
       if (c < c1 && cols) {
-        st.k[u] = __ldg(reinterpret_cast<const uint4*>(kh + (size_t)c * a.D));
-        st.v[u] = __ldg(reinterpret_cast<const uint4*>(vh + (size_t)c * a.D));
+        st.k[u].load(kh + (size_t)c * a.D);
+        st.v[u].load(vh + (size_t)c * a.D);
       }
     }
     const int c = cb + grp * U + my_u;
@@ -203,7 +236,7 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(RT)) split_kernel(const
     st.word = c < c1 ? __ldg(a.cell_seq + (size_t)c * a.W + my_word) : 0u;
   };
 
-  Step cur, nxt;
+  Step<E> cur, nxt;
   fetch(cur, c0);
   for (int cb = c0; cb < c1; cb += STEP) {  // uniform over the block
     fetch(nxt, cb + STEP);
@@ -213,7 +246,7 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(RT)) split_kernel(const
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       float kf[8];
-      bf16x8(cur.k[u], kf);
+      cur.k[u].widen(kf);
 #pragma unroll
       for (int r = 0; r < RT; ++r) {
         float d = 0.f;
@@ -252,7 +285,7 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(RT)) split_kernel(const
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       float vf[8];
-      bf16x8(cur.v[u], vf);
+      cur.v[u].widen(vf);
 #pragma unroll
       for (int r = 0; r < RT; ++r) {
         const float pr = __shfl_sync(FULL, p, (u * RT + r) * LPP, GS);
@@ -350,26 +383,38 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(RT)) split_kernel(const
   }
 }
 
-template <int GS, int RT>
+template <int GS, int RT, typename E>
 int run(const Args& a, cudaStream_t stream) {
   const int TG = a.T * (a.H / a.KVH);
-  split_kernel<GS, RT><<<dim3(a.n_splits, (TG + RT - 1) / RT, a.KVH), THREADS, 0, stream>>>(a);
+  split_kernel<GS, RT, E>
+      <<<dim3(a.n_splits, (TG + RT - 1) / RT, a.KVH), THREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int GS>
+template <int GS, typename E>
 int by_rows(const Args& a, int rows, cudaStream_t stream) {
-  if (rows == 1) return run<GS, 1>(a, stream);
-  if (rows == 2) return run<GS, 2>(a, stream);
+  if (rows == 1) return run<GS, 1, E>(a, stream);
+  if (rows == 2) return run<GS, 2, E>(a, stream);
   if constexpr (U * 4 <= GS) {
-    if (rows == 4) return run<GS, 4>(a, stream);
+    if (rows == 4) return run<GS, 4, E>(a, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename E>
+int by_lanes(const Args& a, int rows, int group_lanes, cudaStream_t stream) {
+  switch (group_lanes) {
+    case 4: return by_rows<4, E>(a, rows, stream);
+    case 8: return by_rows<8, E>(a, rows, stream);
+    case 16: return by_rows<16, E>(a, rows, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q f32 [T, H, D]; k, v bf16 [L, KVH, C, D]; pos i32 [C]; seq u32 [C, W];
+// q f32 [T, H, D]; k, v [L, KVH, C, D] of bf16 (cache_bytes 2) or f32
+// (cache_bytes 4), 16-byte aligned; pos i32 [C]; seq u32 [C, W];
 // tok_pos, tok_seq i32 [T]; valid u8 [T]; slopes f32 [H] or null; part f32
 // scratch of KVH * T * (H / KVH) * n_splits * (D + 2); tickets i32
 // [row tiles * KVH], zero on entry and left zero; out f32 [T, H, D]. The cut
@@ -383,23 +428,21 @@ extern "C" int pi_cell_attention(const void* q, const void* k, const void* v, co
                                  const void* valid, const void* slopes, void* part,
                                  void* tickets, void* out, int T, int H, int KVH, int C, int D,
                                  int W, int layer, int c_hot, int rows, int group_lanes,
-                                 int split, int n_splits, float scale, void* stream) {
+                                 int split, int n_splits, float scale, int cache_bytes,
+                                 void* stream) {
   if (D % 8 || D > 8 * group_lanes || split <= 0 || split % 32 || n_splits <= 0 ||
       n_splits > MAX_SPLITS || (long long)(n_splits - 1) * split >= c_hot ||
       (long long)n_splits * split < c_hot || c_hot > C || H % KVH)
     return (int)cudaErrorInvalidValue;
-  Args a{static_cast<const float*>(q),    static_cast<const __nv_bfloat16*>(k),
-         static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(pos),
+  Args a{static_cast<const float*>(q),    k,
+         v,                               static_cast<const int*>(pos),
          static_cast<const uint32_t*>(seq), static_cast<const int*>(tok_pos),
          static_cast<const int*>(tok_seq), static_cast<const uint8_t*>(valid),
          static_cast<const float*>(slopes), static_cast<float*>(part),
          static_cast<int*>(tickets),      static_cast<float*>(out),
          T, H, KVH, C, D, W, layer, c_hot, split, n_splits, scale};
   auto s = static_cast<cudaStream_t>(stream);
-  switch (group_lanes) {
-    case 4: return by_rows<4>(a, rows, s);
-    case 8: return by_rows<8>(a, rows, s);
-    case 16: return by_rows<16>(a, rows, s);
-  }
+  if (cache_bytes == 2) return by_lanes<__nv_bfloat16>(a, rows, group_lanes, s);
+  if (cache_bytes == 4) return by_lanes<float>(a, rows, group_lanes, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -43,6 +43,20 @@ def embed(tokens: torch.Tensor, w) -> torch.Tensor:
     return w[tokens.long()].float()
 
 
+def rope_kwargs(cfg: ModelConfig) -> dict:
+    """apply_rope's keyword arguments for a config."""
+    return dict(
+        mode=cfg.rope_mode,
+        freq_base=cfg.rope_base,
+        freq_scale=cfg.rope_scale,
+        yarn_ext_factor=cfg.yarn_ext_factor,
+        yarn_attn_factor=cfg.yarn_attn_factor,
+        yarn_beta_fast=cfg.yarn_beta_fast,
+        yarn_beta_slow=cfg.yarn_beta_slow,
+        n_orig_ctx=cfg.n_ctx_orig or cfg.n_ctx_train,
+    )
+
+
 def forward(
     params: Params,
     cfg: ModelConfig,
@@ -64,16 +78,7 @@ def forward(
     mask = kv.attn_mask(cache, pos, seq)
     mask = torch.where(valid[:, None], mask, kv.MASK_VALUE)
 
-    rope_kw = dict(
-        mode=cfg.rope_mode,
-        freq_base=cfg.rope_base,
-        freq_scale=cfg.rope_scale,
-        yarn_ext_factor=cfg.yarn_ext_factor,
-        yarn_attn_factor=cfg.yarn_attn_factor,
-        yarn_beta_fast=cfg.yarn_beta_fast,
-        yarn_beta_slow=cfg.yarn_beta_slow,
-        n_orig_ctx=cfg.n_ctx_orig or cfg.n_ctx_train,
-    )
+    rope_kw = rope_kwargs(cfg)
 
     n_embd_q = cfg.n_heads * cfg.head_dim
     kv_dim = cfg.n_kv_heads * cfg.head_dim

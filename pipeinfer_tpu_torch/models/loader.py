@@ -21,7 +21,7 @@ from ..gguf.constants import GGMLQuantType
 from ..gguf.reader import GGUFReader
 from ..ops.qmatmul import QuantTensor, concat_qt, to_device
 from ..quant import pack
-from . import llama
+from . import generic, llama
 from .config import ModelConfig, config_from_gguf
 
 _DENSE_TYPES = (
@@ -67,39 +67,62 @@ def _load_tensor(r: GGUFReader, name: str, device: torch.device, layout=None):
     return torch.from_numpy(arr).to(device=device, dtype=torch.bfloat16)
 
 
-# GGUF tensor name -> param slot (ref: llama.cpp LLM_TENSOR_NAMES; the llama
-# subset, since models/generic.py is not ported yet)
+# GGUF tensor name -> param slot, shared by every architecture (ref:
+# llama.cpp LLM_TENSOR_NAMES)
 GLOBAL_TENSOR_MAP = {
     "token_embd.weight": "tok_embd",
+    "token_embd_norm.weight": "tok_norm",
+    "token_embd_norm.bias": "tok_norm_b",
+    "position_embd.weight": "pos_embd",
     "output_norm.weight": "output_norm",
+    "output_norm.bias": "output_norm_b",
     "output.weight": "output",
 }
 
 LAYER_TENSOR_MAP = {
     "attn_norm.weight": "attn_norm",
+    "attn_norm.bias": "attn_norm_b",
+    "attn_norm_2.weight": "attn_norm_2",
+    "attn_norm_2.bias": "attn_norm_2_b",
+    "attn_qkv.weight": "wqkv",
+    "attn_qkv.bias": "bqkv",
     "attn_q.weight": "wq",
+    "attn_q.bias": "bq",
     "attn_k.weight": "wk",
+    "attn_k.bias": "bk",
     "attn_v.weight": "wv",
+    "attn_v.bias": "bv",
+    "attn_q_norm.weight": "q_norm",
+    "attn_q_norm.bias": "q_norm_b",
+    "attn_k_norm.weight": "k_norm",
+    "attn_k_norm.bias": "k_norm_b",
     "attn_output.weight": "wo",
+    "attn_output.bias": "bo",
     "ffn_norm.weight": "ffn_norm",
+    "ffn_norm.bias": "ffn_norm_b",
     "ffn_gate.weight": "w_gate",
+    "ffn_gate.bias": "b_gate",
     "ffn_down.weight": "w_down",
+    "ffn_down.bias": "b_down",
     "ffn_up.weight": "w_up",
+    "ffn_up.bias": "b_up",
 }
 
-_GATHER_SLOTS = {"tok_embd"}
+# non-matmul slots loaded for row gathers (embeddings)
+_GATHER_SLOTS = {"tok_embd", "pos_embd"}
 
 
 def forward_for_arch(arch: str):
-    """The forward for an architecture (llama only so far)."""
+    """The forward for an architecture: the llama fast path, or the
+    generic trait-driven decoder for every other one."""
     if arch == "llama":
         return llama.forward
-    raise NotImplementedError(f"architecture {arch!r} is not ported yet (llama is)")
+    return generic.forward
 
 
 def load_model(path: str | Path, *, device=None,
                fuse: bool | None = None) -> tuple[dict[str, Any], ModelConfig]:
-    """Load a GGUF llama model onto `device` (default ``cuda``; raises
+    """Load a GGUF model onto `device` (default ``cuda``; raises
     without CUDA unless ``device="cpu"``). Returns (params, config).
 
     fuse: merge same-input projections (see fuse_projections); default on
@@ -108,7 +131,6 @@ def load_model(path: str | Path, *, device=None,
     device = resolve(device)
     with GGUFReader(path) as r:
         cfg = config_from_gguf(r)
-        forward_for_arch(cfg.arch)  # fail before loading an unported arch
         params: dict[str, Any] = {"layers": [{} for _ in range(cfg.n_layers)]}
         for gname, slot in GLOBAL_TENSOR_MAP.items():
             if gname in r.tensors:
@@ -141,10 +163,12 @@ def fuse_projections(params: dict[str, Any]) -> None:
     -> 'wqkv' ([Q;K;V] row order) and w_gate+w_up -> 'wgu'. One kernel call
     with a wider N replaces three/two. Only QuantTensor groups with matching
     (qtype, layout) fuse — Q4_K_M-style layers, whose w_v is Q6_K, keep
-    split projections — or dense groups of one dtype and width."""
+    split projections — or dense groups of one dtype and width. Groups
+    with biases (bq/bk/bv, b_gate/b_up) stay split: the fused slots carry
+    no bias."""
 
-    def fuse_group(lp, slots, dest):
-        if not all(k in lp for k in slots):
+    def fuse_group(lp, slots, dest, biases):
+        if not all(k in lp for k in slots) or any(b in lp for b in biases):
             return
         ws = [lp[k] for k in slots]
         if all(isinstance(w, QuantTensor) for w in ws):
@@ -160,5 +184,5 @@ def fuse_projections(params: dict[str, Any]) -> None:
                 del lp[k]
 
     for lp in params.get("layers", []):
-        fuse_group(lp, ("wq", "wk", "wv"), "wqkv")
-        fuse_group(lp, ("w_gate", "w_up"), "wgu")
+        fuse_group(lp, ("wq", "wk", "wv"), "wqkv", ("bq", "bk", "bv"))
+        fuse_group(lp, ("w_gate", "w_up"), "wgu", ("b_gate", "b_up"))

@@ -8,7 +8,8 @@ bitmask) metadata and ALiBi fused the same way. On a CUDA tensor
 (``csrc/cell_attention.cu``); on a CPU tensor it runs the plain version.
 
 Replaces pipeinfer_tpu/ops/cell_attention.py::_kernel. Bound on the H100:
-bytes — one pass over K and V of [0, hot) for the layer (2 B per element);
+bytes — one pass over K and V of [0, hot) for the layer (2 B per element
+in a bf16 cache, 4 B in an f32 one);
 at decode T the rows reuse each element only T * G times. The kernel cuts
 the cell range into splits (flash decoding, ``plan``), so that its blocks
 fill the card's waves of resident blocks even at T = 1, reads K/V in place
@@ -133,7 +134,7 @@ def _tickets(device: torch.device, n: int) -> torch.Tensor:
 
 def cell_attention(
     q: torch.Tensor,  # [T, H, D] f32
-    k_cache: torch.Tensor,  # [L, KVH, C, D] (or [KVH, C, D])
+    k_cache: torch.Tensor,  # [L, KVH, C, D] (or [KVH, C, D]), bf16 or f32
     v_cache: torch.Tensor,
     cell_pos: torch.Tensor,  # [C] i32
     cell_seq: torch.Tensor,  # [C, W] i32 holding the uint32 bitmask bit for bit
@@ -164,9 +165,11 @@ def cell_attention(
             or (alibi is not None and alibi.shape != (h,))):
         raise ValueError("cell_attention: inputs do not fit q [T, H, D] and the "
                          f"[L, KVH, C, D] cache {tuple(k_cache.shape)} at layer {layer}")
+    if k_cache.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"cell_attention: the cache must be bf16 or f32, got {k_cache.dtype}")
     cuda_build.check_tensors(
-        "cell_attention", q=(q, torch.float32), k_cache=(k_cache, torch.bfloat16),
-        v_cache=(v_cache, torch.bfloat16), cell_pos=(cell_pos, torch.int32),
+        "cell_attention", q=(q, torch.float32), k_cache=(k_cache, k_cache.dtype),
+        v_cache=(v_cache, k_cache.dtype), cell_pos=(cell_pos, torch.int32),
         cell_seq=(cell_seq, torch.int32), tok_pos=(tok_pos, torch.int32),
         tok_seq=(tok_seq, torch.int32), valid=(valid, torch.bool))
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
@@ -181,7 +184,7 @@ def cell_attention(
     cuda_build.launch("cell_attention", "pi_cell_attention", q, k_cache, v_cache, cell_pos,
                       cell_seq, tok_pos, tok_seq, valid, slopes, part, tickets, out, t, h, kvh,
                       c_full, d, n_words, layer, c, cut.rows, cut.group_lanes, cut.split,
-                      cut.n_splits, float(scale), count=cell_attention)
+                      cut.n_splits, float(scale), k_cache.element_size(), count=cell_attention)
     return out
 
 

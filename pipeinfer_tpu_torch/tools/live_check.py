@@ -1,0 +1,183 @@
+"""The live-model check and the faults its bar must catch.
+
+A bench pair's attention never reaches its logits (its attn_output and
+ffn_down are zero), so a wrong ALiBi or a wrong cell would not show in any
+stream. The live model (``testmodel.build_mpt_bench_pair(live_path=...)``)
+has non-zero ones: its logits after a 9-token prefill and 8 single-token
+steps, whose attention takes the cell kernel, are compared between the
+card and the CPU within ``LIVE_RTOL`` of max|logit|.
+
+The bar sits between two measured spreads:
+
+- the floor: two f32 summation orders apart. ``perturbed_matmuls`` moves
+  every quantized matmul's output by a relative ``rel`` (about 3 ulp, as a
+  kernel's other order of f32 sums does): a run under it against a plain
+  run on the same device shows the spread one other order makes;
+- the faults: ``fault(name)`` runs the single-token steps through the cell
+  kernel (its plain version on CPU tensors) with its inputs rewritten as a
+  faulty kernel would read them (``FAULTS``). Each must move the logits
+  by more than the bar.
+
+Shifting every visible cell's ALiBi position by the same amount adds one
+constant to each row's scores, which the softmax takes out again: no
+output can show it, and none is wrong for it. The positional faults here
+move cells against each other.
+
+    python -m pipeinfer_tpu_torch.tools.live_check [--scale mpt_nano]
+
+builds the live model at ``scale`` (``testmodel.MPT_SCALES``) and prints
+the floor and each fault's spread on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import tempfile
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..models import llama
+from ..runtime import kv_cache as kv
+from ..runtime.context import Batch, InferenceContext
+
+# of max|logit|: on an H100 80GB HBM3 at 700 W, at MPT-7B width, the card
+# against the CPU and one other f32 order on the card both spread about
+# 0.015, and the weakest fault 0.19 (PERF.md): the bar sits between them,
+# about 3x from each
+LIVE_RTOL = 0.05
+PREFILL = 9  # prompt tokens of the live run; 8 single-token steps follow
+STEPS = 8
+N_CELLS = 1024
+
+
+def _own_cell_dropped(pos, tok_pos, alibi):
+    return torch.where(pos == tok_pos[:1], -1, pos), alibi
+
+
+def _oldest_cell_dropped(pos, tok_pos, alibi):
+    return torch.where(pos == 0, -1, pos), alibi
+
+
+def _positions_one_cell_on(pos, tok_pos, alibi):
+    # each cell's position read from the next cell: the newest cell takes a
+    # free cell's -1, and one stale position goes to the oldest cell's left
+    return torch.cat([pos[1:], pos.new_full((1,), -1)]), alibi
+
+
+def _slopes_one_head_off(pos, tok_pos, alibi):
+    return pos, torch.roll(alibi, 1)
+
+
+FAULTS = {  # name -> (cell_pos, tok_pos, alibi) -> (cell_pos, alibi) as the kernel reads them
+    "own cell dropped": _own_cell_dropped,
+    "oldest cell dropped": _oldest_cell_dropped,
+    "positions read one cell on": _positions_one_cell_on,
+    "ALiBi slopes one head off": _slopes_one_head_off,
+}
+
+
+@contextlib.contextmanager
+def fault(name: str):
+    """Within: attend sends every step of at most FLASH_SMALL_T rows to the
+    cell kernel (the plain version on the CPU), with FAULTS[name] applied
+    to the kernel's cell positions and ALiBi slopes."""
+    real_kernel, real_use = kv.cell_attention, kv.use_cell_kernel
+    rewrite = FAULTS[name]
+
+    def use(t, h, kvh, d, c, hot, on_cuda):
+        return t <= kv.FLASH_SMALL_T and kv.cell_kernel_supports(d, hot or c, h, kvh)
+
+    def faulty(q, k, v, cell_pos, cell_seq, tok_pos, tok_seq, valid, *, alibi=None, **kw):
+        cell_pos, alibi = rewrite(cell_pos, tok_pos, alibi)
+        return real_kernel(q, k, v, cell_pos, cell_seq, tok_pos, tok_seq, valid, alibi=alibi,
+                           **kw)
+
+    kv.cell_attention, kv.use_cell_kernel = faulty, use
+    try:
+        yield
+    finally:
+        kv.cell_attention, kv.use_cell_kernel = real_kernel, real_use
+
+
+@contextlib.contextmanager
+def perturbed_matmuls(rel: float = 3e-7, seed: int = 0):
+    """Within: every quantized matmul's output times (1 + rel * N(0, 1)),
+    drawn from `seed` on the CPU: another order of the f32 sums."""
+    real = llama.qmatmul
+    g = torch.Generator().manual_seed(seed)
+
+    def qmatmul(x, w):
+        y = real(x, w)
+        return y * (1 + rel * torch.randn(y.shape, generator=g, device="cpu").to(y.device))
+
+    llama.qmatmul = qmatmul
+    try:
+        yield
+    finally:
+        llama.qmatmul = real
+
+
+def live_tokens(n_vocab: int, seed: int) -> list[int]:
+    return np.random.default_rng(seed).integers(3, n_vocab, PREFILL + STEPS).tolist()
+
+
+def run_live(params, cfg, toks: list[int], device) -> np.ndarray:
+    """The logits [PREFILL + STEPS, n_vocab] of a PREFILL-token prefill and
+    STEPS single-token steps through an N_CELLS-cell context on `device`."""
+    ctx = InferenceContext(params, cfg, n_cells=N_CELLS, device=device)
+    b = Batch()
+    for i, t in enumerate(toks[:PREFILL]):
+        b.add(t, i, 0)
+    rows = [ctx.decode(b)]
+    for j, t in enumerate(toks[PREFILL:]):
+        b = Batch()
+        b.add(t, PREFILL + j, 0)
+        rows.append(ctx.decode(b))
+    return np.concatenate(rows)
+
+
+def spread(got: np.ndarray, want: np.ndarray) -> float:
+    """max|got - want| over max|want|: the measure LIVE_RTOL bounds."""
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def emulate(params, cfg, toks: list[int], rel: float = 3e-7) -> dict[str, float]:
+    """On the CPU: the spread of a run under perturbed_matmuls(rel) and of
+    a run under each fault, each against the plain run."""
+    cpu = torch.device("cpu")
+    want = run_live(params, cfg, toks, cpu)
+    with perturbed_matmuls(rel):
+        out = {"floor": spread(run_live(params, cfg, toks, cpu), want)}
+    for name in FAULTS:
+        with fault(name):
+            out[name] = spread(run_live(params, cfg, toks, cpu), want)
+    return out
+
+
+def main(argv=None) -> int:
+    from ..models import load_model
+    from . import testmodel
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--scale", default="mpt_nano", choices=list(testmodel.MPT_SCALES))
+    ap.add_argument("--seed", type=int, default=42)
+    args = ap.parse_args(argv)
+    torch.manual_seed(args.seed)
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        testmodel.build_mpt_bench_pair(d / "t.gguf", d / "d.gguf", scale=args.scale,
+                                       seed=args.seed, live_path=d / "live.gguf")
+        params, cfg = load_model(d / "live.gguf", device="cpu")
+    res = emulate(params, cfg, live_tokens(cfg.n_vocab, args.seed))
+    for name, v in res.items():
+        print(f"{name:28s} {v:.4g} of max|logit|"
+              + ("" if name == "floor" else f"  ({'fails' if v > LIVE_RTOL else 'PASSES'} "
+                                            f"the {LIVE_RTOL} bar)"))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -399,3 +399,247 @@ def build_tiny_llama(
         extra_kv=vocab_extra,
     )
     return Path(path)
+
+
+# ---------------------------------------------------------------------------
+# the other architectures (models/generic.py)
+# ---------------------------------------------------------------------------
+
+# Per-architecture tensor sets and metadata, as llama.cpp's llm_load_tensors
+# reads them: "norm" LayerNorm (with "norm_b": biases) or RMSNorm, "qkv"
+# fused attn_qkv or split attn_q/k/v, "ffn" gated (ffn_gate) or
+# sequential (ffn_up/ffn_down), "bias": biases on every projection,
+# "qkv_bias": biases on the split q/k/v only, "rope_frac": the share of
+# the head width rotated (ROPE_DIMENSION_COUNT).
+ARCH_LAYOUTS = {
+    "baichuan": dict(norm="rms", qkv=False, ffn="gated"),
+    "refact": dict(norm="rms", qkv=False, ffn="gated"),
+    "falcon": dict(norm="ln", norm_b=True, qkv=True, ffn="seq"),
+    "starcoder": dict(norm="ln", norm_b=True, qkv=True, ffn="seq", bias=True, pos_embd=True),
+    "persimmon": dict(norm="ln", norm_b=True, qkv=True, ffn="seq", bias=True, qk_norm=True,
+                      rope_frac=0.5),
+    "bloom": dict(norm="ln", norm_b=True, qkv=True, ffn="seq", bias=True, tok_norm=True),
+    "mpt": dict(norm="ln", qkv=True, ffn="seq"),
+    "stablelm": dict(norm="ln", norm_b=True, qkv=False, ffn="gated", qkv_bias=True,
+                     rope_frac=0.25),
+    "gptneox": dict(norm="ln", norm_b=True, qkv=True, ffn="seq", bias=True, rope_frac=0.25),
+}
+
+
+def random_arch_weights(rng: np.random.Generator, arch: str, *, n_layers: int, n_embd: int,
+                        n_heads: int, n_kv_heads: int, n_ff: int, n_vocab: int, n_ctx: int = 512,
+                        attn_norm_2: bool = False, scale: float = 0.08) -> dict[str, np.ndarray]:
+    """Random weights of a model of `arch` under their GGUF tensor names
+    (token_embd.weight, blk.<i>.attn_qkv.bias, ...). Norm weights are 1 +
+    noise, biases small. attn_norm_2: Falcon-40B's second attention norm."""
+    lay = ARCH_LAYOUTS[arch]
+    head_dim = n_embd // n_heads
+    kv_dim = n_kv_heads * head_dim
+
+    def r(*shape, s=scale):
+        return (rng.standard_normal(shape) * s).astype(np.float32)
+
+    def norm(name, width):
+        out = {f"{name}.weight": 1.0 + r(width, s=0.1)}
+        if lay.get("norm_b"):
+            out[f"{name}.bias"] = r(width, s=0.05)
+        return out
+
+    def proj(name, n_out, n_in, bias=lay.get("bias", False)):
+        out = {f"{name}.weight": r(n_out, n_in)}
+        if bias:
+            out[f"{name}.bias"] = r(n_out, s=0.05)
+        return out
+
+    w = {"token_embd.weight": r(n_vocab, n_embd, s=1.0), "output.weight": r(n_vocab, n_embd)}
+    w.update(norm("output_norm", n_embd))
+    if lay.get("tok_norm"):
+        w.update(norm("token_embd_norm", n_embd))
+    if lay.get("pos_embd"):
+        w["position_embd.weight"] = r(n_ctx, n_embd, s=0.5)
+    for i in range(n_layers):
+        b = f"blk.{i}."
+        w.update(norm(b + "attn_norm", n_embd))
+        if attn_norm_2:
+            w.update(norm(b + "attn_norm_2", n_embd))
+        if lay["qkv"]:
+            w.update(proj(b + "attn_qkv", n_embd + 2 * kv_dim, n_embd))
+        else:
+            qb = lay.get("bias", False) or lay.get("qkv_bias", False)
+            w.update(proj(b + "attn_q", n_embd, n_embd, qb))
+            w.update(proj(b + "attn_k", kv_dim, n_embd, qb))
+            w.update(proj(b + "attn_v", kv_dim, n_embd, qb))
+        if lay.get("qk_norm"):
+            w[b + "attn_q_norm.weight"] = 1.0 + r(head_dim, s=0.1)
+            w[b + "attn_q_norm.bias"] = r(head_dim, s=0.05)
+            w[b + "attn_k_norm.weight"] = 1.0 + r(head_dim, s=0.1)
+            w[b + "attn_k_norm.bias"] = r(head_dim, s=0.05)
+        w.update(proj(b + "attn_output", n_embd, n_embd))
+        if arch != "falcon":  # falcon's FFN reads the attention norm
+            w.update(norm(b + "ffn_norm", n_embd))
+        if lay["ffn"] == "gated":
+            w.update(proj(b + "ffn_gate", n_ff, n_embd))
+        w.update(proj(b + "ffn_up", n_ff, n_embd))
+        w.update(proj(b + "ffn_down", n_embd, n_ff))
+    return w
+
+
+def write_arch_gguf(path: str | Path, arch: str, weights: dict[str, np.ndarray], *,
+                    n_layers: int, n_embd: int, n_heads: int, n_kv_heads: int, n_ff: int,
+                    n_vocab: int, n_ctx: int = 512, norm_eps: float = 1e-5,
+                    max_alibi_bias: float | None = None, clamp_kqv: float | None = None,
+                    qtype: GGMLQuantType = GGMLQuantType.F32, head_qtype=None,
+                    vocab_kv: dict | None = None) -> Path:
+    """A GGUF of `arch` from weights under GGUF tensor names. 2-D weights
+    whose width is a multiple of 256 take `qtype` (output.weight
+    `head_qtype`, default `qtype`); the rest, and the learned positions
+    (indexed as dense rows), stay F32. A (qtype, payload bytes, shape)
+    tuple is written as it is."""
+    lay = ARCH_LAYOUTS[arch]
+    head_dim = n_embd // n_heads
+    w = GGUFWriter(path, arch)
+    w.add_arch_kv(Keys.EMBEDDING_LENGTH, n_embd)
+    w.add_arch_kv(Keys.BLOCK_COUNT, n_layers)
+    w.add_arch_kv(Keys.HEAD_COUNT, n_heads)
+    w.add_arch_kv(Keys.HEAD_COUNT_KV, n_kv_heads)
+    w.add_arch_kv(Keys.FEED_FORWARD_LENGTH, n_ff)
+    w.add_arch_kv(Keys.CONTEXT_LENGTH, n_ctx)
+    if lay["norm"] == "rms":
+        w.add_arch_kv(Keys.LAYER_NORM_RMS_EPS, float(norm_eps))
+    else:
+        w.add_arch_kv(Keys.LAYER_NORM_EPS, float(norm_eps))
+    if "rope_frac" in lay:
+        w.add_arch_kv(Keys.ROPE_DIMENSION_COUNT, int(head_dim * lay["rope_frac"]))
+    if max_alibi_bias is not None:
+        w.add_arch_kv(Keys.MAX_ALIBI_BIAS, float(max_alibi_bias))
+    if clamp_kqv is not None:
+        w.add_arch_kv(Keys.CLAMP_KQV, float(clamp_kqv))
+    w.add_kv("general.vocab_size", n_vocab)
+    for key, val in (vocab_kv or {}).items():
+        w.add_kv(key, val)
+    for name, arr in weights.items():
+        if isinstance(arr, tuple):  # pre-quantized (qtype, payload, shape)
+            qt, payload, shape = arr
+            w.add_tensor(name, payload, shape=shape, qtype=qt)
+            continue
+        qt = (head_qtype or qtype) if name == "output.weight" else qtype
+        if arr.ndim != 2 or arr.shape[-1] % 256 != 0 or name == "position_embd.weight":
+            qt = GGMLQuantType.F32
+        w.add_tensor(name, arr.astype(np.float32), qtype=qt)
+    w.write()
+    return Path(path)
+
+
+def build_tiny_arch(path: str | Path, arch: str, *, seed: int = 0, n_layers: int = 2,
+                    n_embd: int = 64, n_heads: int = 4, n_kv_heads: int | None = None,
+                    n_ff: int = 128, n_vocab: int = 256, attn_norm_2: bool = False,
+                    qtype: GGMLQuantType = GGMLQuantType.F32, **kv) -> Path:
+    """A random tiny model of `arch` (one of ARCH_LAYOUTS) from `seed`;
+    extra keywords go to write_arch_gguf (max_alibi_bias, clamp_kqv, ...)."""
+    n_kv_heads = n_heads if n_kv_heads is None else n_kv_heads
+    shape = dict(n_layers=n_layers, n_embd=n_embd, n_heads=n_heads, n_kv_heads=n_kv_heads,
+                 n_ff=n_ff, n_vocab=n_vocab)
+    weights = random_arch_weights(np.random.default_rng(seed), arch, attn_norm_2=attn_norm_2,
+                                  **shape)
+    return write_arch_gguf(path, arch, weights, qtype=qtype, **shape, **kv)
+
+
+MPT_SCALES = {
+    # mosaicml/mpt-7b's config.json: d_model 4096, n_heads 32, n_layers 32,
+    # expansion_ratio 4, vocab_size 50432, alibi with alibi_bias_max 8,
+    # no_bias; the draft is the lower 5 layers, as for the llama 7b pair
+    "mpt7b": dict(target=dict(n_layers=32, n_embd=4096, n_heads=32, n_kv_heads=32, n_ff=16384,
+                              n_vocab=50432), draft_layers=5),
+    # the same design at unit-test widths (head_dim 128, as MPT-7B's)
+    "mpt_nano": dict(target=dict(n_layers=4, n_embd=256, n_heads=2, n_kv_heads=2, n_ff=1024,
+                                 n_vocab=2048), draft_layers=2),
+}
+MPT_LIVE_LAYERS = 2
+
+
+def build_mpt_bench_pair(tgt_path: str | Path, dft_path: str | Path, *, scale: str = "mpt7b",
+                         eps: float = 0.0, seed: int = 42, vocab: bool = False,
+                         live_path: str | Path | None = None, log=lambda *a: None):
+    """The MPT-7B counterpart of build_bench_pair: mosaicml/mpt-7b's widths
+    (MPT_SCALES["mpt7b"]; "mpt_nano" for tests), quantized as llama.cpp's Q4_K_M quantizes the head (every
+    weight Q4_K, output.weight Q6_K); LayerNorm without biases, a fused
+    attn_qkv, a GELU FFN of ffn_up and ffn_down, ALiBi (max bias 8).
+
+    The same cuts as build_bench_pair: random weights from `seed`,
+    attn_output and ffn_down zero (still quantized and streamed), so the
+    residual stays the token's embedding and the head maps token t to
+    perm[t] with a wide margin; the embedding rows are made zero-mean, so
+    that LayerNorm (which subtracts the row mean) equals RMSNorm on them and
+    the margin survives. The draft is the target's lower `draft_layers`
+    layers, its head disagreeing with the target's on an eps share of
+    tokens. Upper layers share one template layer's weights.
+
+    live_path: also write a MPT_LIVE_LAYERS-layer model of the same widths,
+    embedding and head whose attn_output and ffn_down are random and
+    non-zero, so that attention (and ALiBi) reaches the logits. Every
+    projection is drawn at 1/sqrt(fan_in), so the attention scores of the
+    normed activations spread by about one and attention stays soft: a
+    one-ulp difference upstream then moves the live logits by little, and
+    a wrong cell or slope by much more (tools/live_check.py)."""
+    from ..quant.formats import quantize
+
+    shape = MPT_SCALES[scale]["target"]
+    rng = np.random.default_rng(seed)
+    e, ff, v = shape["n_embd"], shape["n_ff"], shape["n_vocab"]
+
+    def proj(n_out, fan_in):
+        return rng.standard_normal((n_out, fan_in), dtype=np.float32) / np.float32(fan_in ** 0.5)
+
+    def layer():
+        return {"attn_norm.weight": np.ones(e, np.float32), "attn_qkv.weight": proj(3 * e, e),
+                "attn_output.weight": np.zeros((e, e), np.float32),
+                "ffn_norm.weight": np.ones(e, np.float32), "ffn_up.weight": proj(ff, e),
+                "ffn_down.weight": np.zeros((e, ff), np.float32)}
+
+    draft_layer, upper = layer(), layer()
+    embed = rng.standard_normal((v, e), dtype=np.float32) * 0.08
+    embed -= embed.mean(axis=1, keepdims=True)
+    u = embed / np.linalg.norm(embed, axis=1, keepdims=True)
+    perm = rng.permutation(v)
+    output = (0.5 * u[np.argsort(perm)]).astype(np.float32)
+    if eps:
+        n_bad = max(1, int(round(eps * v)))
+        bad = rng.choice(v, size=n_bad, replace=False)
+        perm_d = perm.copy()
+        perm_d[bad] = perm[np.roll(bad, 1)]
+        output_d = (0.5 * u[np.argsort(perm_d)]).astype(np.float32)
+    else:
+        output_d = output
+    vocab_kv = synthetic_spm_vocab(v, seed) if vocab else {}
+    memo: dict[int, tuple] = {}
+
+    def q(arr, qt):
+        if arr.ndim != 2:
+            return arr
+        if id(arr) not in memo:
+            memo[id(arr)] = (qt, np.asarray(quantize(arr, qt)).tobytes(), arr.shape)
+        return memo[id(arr)]
+
+    def write(path, layers, head):
+        weights = {"token_embd.weight": q(embed, GGMLQuantType.Q4_K),
+                   "output_norm.weight": np.ones(e, np.float32),
+                   "output.weight": q(head, GGMLQuantType.Q6_K)}
+        for li, lw in enumerate(layers):
+            for name, arr in lw.items():
+                weights[f"blk.{li}.{name}"] = q(arr, GGMLQuantType.Q4_K)
+        write_arch_gguf(path, "mpt", weights, **dict(shape, n_layers=len(layers)), n_ctx=2048,
+                        max_alibi_bias=8.0, vocab_kv=vocab_kv)
+
+    import time as _t
+
+    t0 = _t.time()
+    n, dl = shape["n_layers"], MPT_SCALES[scale]["draft_layers"]
+    write(tgt_path, [draft_layer] * dl + [upper] * (n - dl), output)
+    write(dft_path, [draft_layer] * dl, output_d)
+    if live_path is not None:
+        live = dict(draft_layer, **{"attn_output.weight": proj(e, e),
+                                    "ffn_down.weight": proj(e, ff)})
+        write(live_path, [live] * MPT_LIVE_LAYERS, output)
+    log(f"built the {scale} pair in {_t.time() - t0:.1f}s (eps={eps}, {n}L target / {dl}L draft"
+        + (f", {MPT_LIVE_LAYERS}L live model)" if live_path is not None else ")"))
+    return Path(tgt_path), Path(dft_path)

@@ -42,6 +42,50 @@ def test_dispatch_keeps_its_thresholds_for_supported_heads():
     assert tkv.use_cell_kernel(1, 32, 8, 128, 1024, 0, on_cuda=True)  # GQA groups of 4
 
 
+def test_f32_cache_takes_the_cell_kernel(monkeypatch, rng):
+    """The kernel reads an f32 cache (--cache-dtype f32) as the JAX
+    package's does: attend's choice does not look at the cache dtype, and
+    with the card's branch forced it hands the f32 cache to the kernel's
+    wrapper (the plain version here), which agrees with the Pallas kernel
+    in interpret mode on the same cache."""
+    import jax.numpy as jnp
+    import torch
+
+    from pipeinfer_tpu.ops.cell_attention import cell_attention as j_cell_attention
+
+    t, h, kvh, d, c, used = 1, 8, 2, 64, 512, 300
+    q = rng.standard_normal((t, h, d)).astype(np.float32)
+    kc = rng.standard_normal((2, kvh, c, d)).astype(np.float32)
+    vc = rng.standard_normal((2, kvh, c, d)).astype(np.float32)
+    pos = np.full(c, -1, np.int32)
+    pos[:used] = rng.permutation(used)
+    seq = np.zeros((c, tkv.SEQ_WORDS), np.uint32)
+    seq[:used, 0] = 1
+    tok_pos, tok_seq, valid = np.full(t, used, np.int32), np.zeros(t, np.int32), np.ones(t, bool)
+    alibi = np.asarray(tkv.alibi_slopes(h, 8.0))
+    seen = []
+    real = tkv.cell_attention
+
+    def spy(q_, k_, *a, **kw):
+        seen.append(k_.dtype)
+        return real(q_, k_, *a, **kw)
+
+    monkeypatch.setattr(tkv, "cell_attention", spy)
+    monkeypatch.setattr(tkv, "use_cell_kernel", lambda *a: True)  # the card's branch
+    cache = tkv.KVCache(k=torch.from_numpy(kc), v=torch.from_numpy(vc), pos=torch.from_numpy(pos),
+                        seq=torch.from_numpy(seq.view(np.int32)))
+    tp, ts = torch.from_numpy(tok_pos), torch.from_numpy(tok_seq)
+    got = tkv.attend(torch.from_numpy(q), cache, 1, tkv.attn_mask(cache, tp, ts), tp, ts,
+                     torch.from_numpy(valid), scale=d ** -0.5,
+                     alibi=torch.from_numpy(alibi)).numpy()
+    assert seen == [torch.float32]
+    want = np.asarray(j_cell_attention(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(pos), jnp.asarray(seq),
+        jnp.asarray(tok_pos), jnp.asarray(tok_seq), jnp.asarray(valid), layer=1,
+        scale=d ** -0.5, block_c=256, interpret=True, alibi=jnp.asarray(alibi)))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
 def test_supports_edges():
     """The other limits of the predicate (the wrapper raises on each)."""
     for d in (100, 136, 60):

@@ -9,7 +9,9 @@ print the JAX package's stdout byte for byte, under the default layout
 (k_major off the accelerator in both packages) and under i4g, for every
 engine (the device loop too, also where --engine auto picks it). Options
 the port does not have yet must exit with an error naming their ROADMAP.md
-item by its title.
+item by its title. The staged pipeline's CLIs (`cli.pipeline`, and
+`cli.speculative --stages 2`) and `cli.lookahead` print the JAX package's
+text too.
 """
 
 import contextlib
@@ -23,18 +25,23 @@ import numpy as np
 import pytest
 import torch
 
+from pipeinfer_tpu.cli import lookahead as j_lookahead
 from pipeinfer_tpu.cli import main as j_main
+from pipeinfer_tpu.cli import pipeline as j_pipeline
 from pipeinfer_tpu.cli import speculative as j_spec
 from pipeinfer_tpu.gguf.constants import GGMLQuantType as JQ
 from pipeinfer_tpu.gguf.reader import GGUFReader as JReader
 from pipeinfer_tpu.models import loader as j_loader
 from pipeinfer_tpu.tokenizer import tokenizer_from_gguf as j_tokenizer
 from pipeinfer_tpu.tokenizer.stream import StreamDecoder as JStream
+from pipeinfer_tpu_torch.cli import lookahead as t_lookahead
 from pipeinfer_tpu_torch.cli import main as t_main
+from pipeinfer_tpu_torch.cli import pipeline as t_pipeline
 from pipeinfer_tpu_torch.cli import speculative as t_spec
 from pipeinfer_tpu_torch.gguf.constants import GGMLQuantType as TQ
 from pipeinfer_tpu_torch.gguf.reader import GGUFReader as TReader
 from pipeinfer_tpu_torch.models import loader as t_loader
+from pipeinfer_tpu_torch.parallel.stages import StagedInferenceContext
 from pipeinfer_tpu_torch.tokenizer import tokenizer_from_gguf as t_tokenizer
 from pipeinfer_tpu_torch.tokenizer.stream import StreamDecoder as TStream
 from pipeinfer_tpu_torch.tools import testmodel
@@ -56,7 +63,19 @@ SPEC_CASES = {
     "auto_np1": ["--engine", "auto", "-np", "1", "--draft", "6"],  # auto picks the device loop
 }
 SURFACE = 'ROADMAP.md queue 1, "The rest of the JAX package\'s surface"'
-STAGES = 'ROADMAP.md queue 1, "Other architectures and stages"'
+MULTI_DEVICE = 'ROADMAP.md queue 1, "Multi-device"'
+# the staged pipeline's and lookahead's CLIs: (JAX entry, port entry, extra argv)
+STAGED_CASES = {
+    "pipeline_2": (j_pipeline.main, t_pipeline.main, ["--layer-split", "0.5,0.5"]),
+    "pipeline_3_weighted": (j_pipeline.main, t_pipeline.main, ["--layer-split", "0.25,0.25,0.5"]),
+    "lookahead": (j_lookahead.main, t_lookahead.main, ["-W", "6", "-N", "4", "-G", "8"]),
+    "lookahead_defaults": (j_lookahead.main, t_lookahead.main, []),
+    "speculative_stages2": (j_spec.main, t_spec.main,
+                            ["--stages", "2", "--engine", "controller", "-np", "1"]),
+    "speculative_stages2_trees": (j_spec.main, t_spec.main, ["--stages", "2", "--draft", "4"]),
+    "speculative_stages2_auto": (j_spec.main, t_spec.main,
+                                 ["--stages", "2", "--engine", "auto", "-np", "1"]),
+}
 
 
 @pytest.fixture(scope="module")
@@ -180,9 +199,35 @@ def test_main_refuses_unported_options(extra, capsys):
     assert e.value.code not in (0, None) and SURFACE in str(e.value.code)
 
 
-@pytest.mark.parametrize("extra,item", [(["--stages", "2"], STAGES)])
-def test_speculative_refuses_unported_engines(extra, item):
-    """Never another engine behind the user's back: staged targets exit."""
-    with pytest.raises(SystemExit) as e:
-        t_spec.main(["-m", "absent.gguf", "-md", "absent.gguf", "--device", "cpu", *extra])
-    assert e.value.code not in (0, None) and item in str(e.value.code)
+def test_speculative_refuses_unported_engines(pair):
+    """Never another engine behind the user's back: tensor-parallel stages
+    (tp > 1) raise, naming their ROADMAP.md item."""
+    params, cfg = t_loader.load_model(pair[0], device="cpu")
+    with pytest.raises(NotImplementedError) as e:
+        StagedInferenceContext(params, cfg, n_cells=256, devices=["cpu"] * 2, tp=2)
+    assert MULTI_DEVICE in str(e.value) and "tp=2" in str(e.value)
+
+
+@pytest.mark.parametrize("case", list(STAGED_CASES))
+def test_staged_and_lookahead_clis_print_the_jax_stdout(pair, case, monkeypatch):
+    """cli.pipeline over 2 and 3 stages, cli.lookahead and cli.speculative
+    --stages 2 (the controller; --engine auto keeps it for a staged target)
+    print the JAX package's text, which is cli.main's greedy text."""
+    monkeypatch.delenv("PIPEINFER_WEIGHT_LAYOUT", raising=False)
+    j_entry, t_entry, extra = STAGED_CASES[case]
+    argv = _greedy(pair) + (["-md", pair[1]] if t_entry is t_spec.main else []) + extra
+    want = _stdout(j_entry, argv)
+    got = _stdout(t_entry, argv + ["--device", "cpu"])
+    assert got == want
+    assert got == _stdout(t_main.main, _greedy(pair) + ["--device", "cpu"])
+
+
+def test_pipeline_module_runs_as_a_program(pair):
+    """`python -m pipeinfer_tpu_torch.cli.pipeline` in a process of its own
+    prints what the in-process call prints, and names its stages."""
+    argv = _greedy(pair, n=16) + ["--layer-split", "0.5,0.5", "--device", "cpu"]
+    out = subprocess.run([sys.executable, "-m", "pipeinfer_tpu_torch.cli.pipeline", *argv],
+                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout == _stdout(t_pipeline.main, argv)
+    assert "pipeline: 2 stages, layer ranges [(0, 2), (2, 4)]" in out.stderr

@@ -373,6 +373,122 @@ def test_cell_attention_kernel_matches_plain(cuda, case):
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("t", [1, 4])
+def test_cell_attention_alibi_at_mpt_heads(cuda, t):
+    """ALiBi fused in the kernel at MPT-7B's heads (H = KVH = 32, D = 128,
+    kv_cache.alibi_slopes(32, 8.0)) over a 1024-cell pool with holes (freed
+    cells, pos -1, between live ones), against the plain version on the CPU."""
+    from pipeinfer_tpu_torch.runtime import kv_cache as KV
+
+    h, d, c = 32, 128, 1024
+    g = torch.Generator(device=cuda).manual_seed(40 + t)
+    kc = torch.randn(2, h, c, d, device=cuda, generator=g).to(torch.bfloat16)
+    vc = torch.randn(2, h, c, d, device=cuda, generator=g).to(torch.bfloat16)
+    pos = torch.arange(c, dtype=torch.int32, device=cuda)
+    pos[300:340] = -1  # freed by a seq_rm
+    pos[600:] = -1
+    seq = torch.zeros(c, KV.SEQ_WORDS, dtype=torch.int32, device=cuda)
+    seq[pos >= 0, 0] = 1
+    q = torch.randn(t, h, d, device=cuda, generator=g)
+    tok_pos = torch.arange(600, 600 + t, dtype=torch.int32, device=cuda)
+    tok_seq = torch.zeros(t, dtype=torch.int32, device=cuda)
+    valid = torch.ones(t, dtype=torch.bool, device=cuda)
+    slopes = KV.alibi_slopes(h, 8.0, device=cuda)
+    args = (q, kc, vc, pos, seq, tok_pos, tok_seq, valid)
+    before = CA.cell_attention.launches
+    got = CA.cell_attention(*args, layer=1, scale=d ** -0.5, alibi=slopes)
+    assert CA.cell_attention.launches == before + 1
+    want = CA.cell_attention(*(a.cpu() for a in args), layer=1, scale=d ** -0.5,
+                             alibi=slopes.cpu())
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("t", [1, 4])
+def test_cell_attention_f32_cache_matches_plain(cuda, t):
+    """The kernel over an f32 cache (--cache-dtype f32), reached through
+    attend at MPT-7B's heads with ALiBi over a 1024-cell pool whose
+    positions are shuffled against the cell index, against the plain
+    version on the CPU."""
+    from pipeinfer_tpu_torch.runtime import kv_cache as KV
+
+    h, d, c = 32, 128, 1024
+    g = torch.Generator(device=cuda).manual_seed(50 + t)
+    kc = torch.randn(2, h, c, d, device=cuda, generator=g)
+    vc = torch.randn(2, h, c, d, device=cuda, generator=g)
+    pos = torch.randperm(c, device=cuda, generator=g).to(torch.int32)
+    pos[300:340] = -1
+    seq = torch.zeros(c, KV.SEQ_WORDS, dtype=torch.int32, device=cuda)
+    seq[pos >= 0, 0] = 1
+    q = torch.randn(t, h, d, device=cuda, generator=g)
+    tok_pos = torch.arange(c, c + t, dtype=torch.int32, device=cuda)
+    tok_seq = torch.zeros(t, dtype=torch.int32, device=cuda)
+    valid = torch.ones(t, dtype=torch.bool, device=cuda)
+    slopes = KV.alibi_slopes(h, 8.0, device=cuda)
+    cache = KV.KVCache(kc, vc, pos, seq)
+    before = CA.cell_attention.launches
+    got = KV.attend(q, cache, 1, KV.attn_mask(cache, tok_pos, tok_seq), tok_pos, tok_seq, valid,
+                    scale=d ** -0.5, alibi=slopes)
+    assert CA.cell_attention.launches == before + 1
+    args = (q, kc, vc, pos, seq, tok_pos, tok_seq, valid)
+    want = CA.cell_attention(*(a.cpu() for a in args), layer=1, scale=d ** -0.5,
+                             alibi=slopes.cpu())
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("m", [1, 8, 128])
+@pytest.mark.parametrize("n,k", [(12288, 4096), (4096, 4096), (16384, 4096), (4096, 16384)])
+def test_i4g_at_mpt_widths(cuda, n, k, m):
+    """i4g over each of MPT-7B's 4-bit tensors (wqkv, wo, w_up, w_down) at
+    a decode or draft step (M = 1), the verify bucket (M = 8) and the
+    bucket of lookahead's 121-row verify batch (M = 128; W 15, N 5, G 15):
+    on the same s8 activations, the plain version's result within 1e-5 of
+    max|out| and two calls bitwise equal. (The activations are quantized
+    once: quantized apart on the two devices, one of 2M elements can round
+    the other way.)"""
+    g = torch.Generator(device=cuda).manual_seed(n + k + m)
+    qs = torch.randint(0, 256, (k // 2, n), dtype=torch.uint8, device=cuda, generator=g)
+    step = torch.rand(k // 128, n, device=cuda, generator=g) * 0.01 + 1e-3
+    wmin = -torch.rand(k // 128, n, device=cuda, generator=g) * 0.08
+    xq, sx = Q.quantize_activations(torch.randn(m, k, device=cuda, generator=g), k, Q.I4G_HALF)
+    xsum = xq.reshape(m, k // Q.I4G_HALF, Q.I4G_HALF).sum(dim=2, dtype=torch.int32).float()
+    args = (xq, xsum, sx, qs, step, wmin)
+    before = Q.i4g_matmul.launches
+    got, again = Q.i4g_matmul(*args), Q.i4g_matmul(*args)
+    assert Q.i4g_matmul.launches == before + 2 and torch.equal(got, again)
+    want = Q.i4g_matmul(*(a.cpu() for a in args))  # the plain version
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("arch", ["mpt", "falcon", "starcoder", "bloom", "persimmon"])
+def test_generic_model_on_card_matches_cpu(cuda, tmp_path, arch):
+    """A small f32 model of a non-llama architecture through a 512-cell
+    context on the card (its T = 1 steps take the cell kernel, ALiBi, MQA
+    and partial rope included) against the same weights on the CPU: logits
+    within 5e-3 of max|logit| (chip_smoke.TOY_RTOL: the bf16 cache rounds
+    the two devices' f32 orders apart; a CPU emulation of that moved them
+    by at most 3.5e-4)."""
+    path = testmodel.build_tiny_arch(tmp_path / f"{arch}.gguf", arch, seed=5, n_embd=256,
+                                     n_heads=4, n_kv_heads=4 if arch in ("mpt", "persimmon") else 1,
+                                     n_ff=512, n_vocab=512)
+    params, cfg = load_model(path, device=cuda)
+    outs = []
+    before = CA.cell_attention.launches
+    for dev in (cuda, torch.device("cpu")):
+        ctx = InferenceContext(params, cfg, n_cells=512, device=dev)
+        b = Batch()
+        for i, tk in enumerate([1, 17, 200, 33, 5, 9, 71, 8, 99]):
+            b.add(tk, i, 0)
+        rows = [ctx.decode(b)]
+        for j in range(4):
+            b = Batch()
+            b.add(40 + j, 9 + j, 0)
+            rows.append(ctx.decode(b))
+        outs.append(np.concatenate(rows))
+    assert CA.cell_attention.launches == before + 4 * cfg.n_layers  # the card's T = 1 steps
+    scale = np.abs(outs[1]).max()
+    np.testing.assert_allclose(outs[0], outs[1], rtol=0, atol=5e-3 * scale)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     xq = torch.zeros(2, 512, dtype=torch.int8, device=cuda)
     sx = torch.ones(1, device=cuda)

@@ -38,7 +38,8 @@ def test_import_leaves_jax_and_reference_out():
     for mod in ("ops.qmatmul", "ops.cell_attention", "runtime.context", "spec.controller",
                 "spec.corrected", "models.convert", "cli.args", "cli.main", "cli.speculative",
                 "tokenizer.vocab", "tokenizer.spm", "tokenizer.bpe", "tokenizer.stream",
-                "sampling.grammar", "utils.kv_view"):
+                "sampling.grammar", "utils.kv_view", "models.generic", "models.staged",
+                "parallel.stages", "spec.lookahead", "cli.pipeline", "cli.lookahead"):
         assert f"pipeinfer_tpu_torch.{mod}" in res["modules"]
 
 
