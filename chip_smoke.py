@@ -63,6 +63,23 @@ Phases, each failing the run (non-zero exit, no result line) on a miss:
    cut to CLI_DEPTH layers) print one text, and so does a `python -m
    pipeinfer_tpu_torch.cli.pipeline` subprocess; eight other
    architectures at toy width (f32 weights) on the card against the CPU.
+9. tools: i4g at M = 512 over the 7B's fused wqkv, w_down and head and
+   i8g at M = 512 over the toy Q6_K pair's fused gate+up and head, each
+   against its plain version with the bitwise repeat and timed; on the
+   full-depth 7B Q4_K target, loaded once: perplexity over two 512-token
+   windows of text drawn from the synthetic vocabulary (i4g at M = 512),
+   bench's pp512 and tg128, the batched_bench grid (pp 128, tg 32, pl 1,
+   2, 4, 8, shared prompt), beam search with 1 beam (== plain greedy) and 4
+   (sorted by score), 4 batched greedy continuations (each == plain
+   greedy), one embedding (unit norm) and the session state saved and
+   restored over a bf16 and an f32 cache (the restored context's 16
+   greedy steps give the live one's tokens and bitwise equal logits);
+   perplexity on the toy Q6_K target (i8g at M = 512); cli.main
+   --prompt-cache twice (the same text, the second run skipping the cached
+   prefix); shapebench --model 7b --draft 1.1b (k_major); last a 2-layer
+   live llama at 7B width (non-zero attn_output and ffn_down): perplexity
+   at n_ctx 128 and an embedding on the card against the CPU within
+   tools/live_check's bars, and each of live_check.MASK_FAULTS past them.
 
 The last lines printed are the card line, one JSON line with a record per
 kernel, and {"ok": true, "device": {...}}. Details of every shape go to
@@ -202,6 +219,18 @@ def _split_inputs(layout: str, x, planes):
     return Q.i8g_matmul, Q._i8g_plain, [(xq, sx, *p) for p in planes], "i8g_matmul", 2 * m * n * kp
 
 
+def _split_qt(layout: str, planes: tuple, n: int, k: int):
+    """The QuantTensor [N, K] of one set of i4g or i8g planes (for the
+    dequantized yardstick)."""
+    from pipeinfer_tpu_torch.ops import qmatmul as Q
+
+    if layout == "i4g":
+        qs, step, wmin = planes
+        return Q.QuantTensor(qs, None, step, wmin, qtype=None, shape=(n, k), layout="i4g")
+    return Q.QuantTensor(planes[0], None, planes[1], planes[1][:0], qtype=None, shape=(n, k),
+                         layout="i8g")
+
+
 def _check_repeat(kern, plain, args, label: str, kw=None) -> tuple[float, float]:
     """Two kernel calls on the same inputs bitwise equal, and within
     MATMUL_RTOL of max|plain| of the plain version. Returns (max error,
@@ -244,13 +273,8 @@ def phase_qmatmul(records: dict, details: list):
         for name, (n, k) in shapes.items():
             planes = _split_planes(layout, n, k, dev, g, copies_for(
                 n * k // 2 if layout == "i4g" else -(-k // 512) * 512 * n))
-            if layout == "i4g":
-                qs, step, wmin = planes[0]
-                qt = Q.QuantTensor(qs, None, step, wmin, qtype=None, shape=(n, k), layout="i4g")
-            else:
-                qt = Q.QuantTensor(planes[0][0], None, planes[0][1], planes[0][1][:0],
-                                   qtype=None, shape=(n, k), layout="i8g")
-            w_bf16 = Q.dequant_T(qt, torch.bfloat16)  # [K, N], for the yardstick only
+            # [K, N], for the yardstick only
+            w_bf16 = Q.dequant_T(_split_qt(layout, planes[0], n, k), torch.bfloat16)
             for m in I4G_MS:
                 x = torch.randn(m, k, device=dev, generator=g)
                 kern, plain, ins, name_k, ops = _split_inputs(layout, x, planes)
@@ -699,13 +723,15 @@ CLI_GREEDY = ["--temp", "0", "--repeat-penalty", "1.0", "--repeat-last-n", "0", 
               "-c", "1024"]
 
 
-def _cli_text(entry, argv) -> tuple[str, float]:
-    """stdout of one in-process CLI call, and its seconds (load included)."""
+def _cli_text(entry, argv, err: io.StringIO | None = None) -> tuple[str, float]:
+    """stdout of one in-process CLI call, and its seconds (load included);
+    its stderr goes to `err` when given."""
     import torch
 
     buf = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
+    with contextlib.redirect_stdout(buf), \
+            (contextlib.redirect_stderr(err) if err is not None else contextlib.nullcontext()):
         rc = entry(argv)
     torch.cuda.synchronize()
     took = time.perf_counter() - t0
@@ -1661,12 +1687,434 @@ def run_arch(counters: dict, records: dict, n_predict: int) -> list:
 
 
 # ---------------------------------------------------------------------------
+# tools: the tools that run a model and the session state, at 7B width
+# ---------------------------------------------------------------------------
+
+TOOLS_M = 512  # rows of a perplexity window and of pp512: the 512 prefill bucket
+TOOLS_I4G = ("wqkv", "w_down", "output")  # at M = 512 the fused wqkv and the head take 1 split
+# the toy Q6_K pair's widest tensor (its fused gate+up) and its head, through i8g
+TOOLS_I8G = {"toy_wgu": (5632, 1024), "toy_output": (32000, 1024)}
+TOOLS_N_CELLS = 1024  # what the perplexity CLI makes of n_ctx 512 (+ 8, rounded to 512s)
+TOOLS_PROMPT_LEN = 32
+TOOLS_BEAM_N, TOOLS_BATCHED_N = 16, 32
+TOOLS_STATE_PREFILL, TOOLS_STATE_STEPS, TOOLS_STATE_CELLS = 64, 16, 512
+TOOLS_BB = dict(pps=[128], tgs=[32], pls=[1, 2, 4, 8])  # batched_bench's grid
+TOOLS_LIVE_CTX = 128  # the live model's perplexity windows
+TOOLS_EMBED_LEN = 13  # an odd M
+
+
+def check_tools_shapes(records: dict, details: list):
+    """i4g at M = 512 over the 7B's fused wqkv, w_down and head, i8g at M =
+    512 over the toy Q6_K pair's fused gate+up and head: each against its
+    plain version at MATMUL_RTOL with the bitwise repeat, timed beside its
+    plain version, its bound and a bf16 GEMM on the dequantized weight (the
+    yardstick); the rows go to each kernel's record under "tools"."""
+    import torch
+
+    from pipeinfer_tpu_torch.ops import qmatmul as Q
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    rows: dict = {"i4g_matmul": [], "i8g_matmul": []}
+    m = TOOLS_M
+    cases = [("i4g", name, I4G_SHAPES[name]) for name in TOOLS_I4G] + \
+        [("i8g", name, nk) for name, nk in TOOLS_I8G.items()]
+    for layout, name, (n, k) in cases:
+        planes = _split_planes(layout, n, k, dev, g, copies_for(
+            n * k // 2 if layout == "i4g" else -(-k // 512) * 512 * n))
+        x = torch.randn(m, k, device=dev, generator=g)
+        kern, plain, ins, name_k, ops = _split_inputs(layout, x, planes)
+        err, scale = _check_repeat(kern, plain, ins[0], f"{name_k} {name} M={m}")
+        cut = _cut(kern)
+        it = iter(range(1 << 30))
+        k_ms = gpu_ms(lambda: kern(*ins[next(it) % len(ins)]), iters=10)
+        p_ms = gpu_ms(lambda: plain(*ins[0]), iters=2, warmup=1)
+        w_bf16 = Q.dequant_T(_split_qt(layout, planes[0], n, k), torch.bfloat16)
+        xb = x.to(torch.bfloat16)
+        lib_ms = gpu_ms(lambda: xb @ w_bf16, iters=10)
+        b_ms, b_by = bound(nbytes(*ins[0]) + m * n * 4, ops, "int8")
+        row = dict(kernel=name_k, tensor=name, N=n, K=k, M=m, max_abs_err=err,
+                   tol=MATMUL_RTOL * scale, ms=k_ms, plain_ms=p_ms, yardstick_ms=lib_ms,
+                   bound_ms=b_ms, bound_by=b_by, plan=cut, phase="tools")
+        rows[name_k].append(row)
+        details.append(row)
+        log(f"{name_k:11s} {name:10s} [{n}x{k}] M={m}: err {err:.3g} (tol "
+            f"{MATMUL_RTOL * scale:.3g}), two calls bitwise equal  kernel {k_ms:.4f} ms  plain "
+            f"{p_ms:.4f} ms  bf16 GEMM {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  cut {cut}")
+        del planes, ins, w_bf16
+    torch.cuda.empty_cache()
+    for key, src, tpu in (
+        ("i4g_matmul", "pipeinfer_tpu_torch/csrc/qmatmul_i4g.cu", "pipeinfer_tpu/ops/qmatmul.py:784"),
+        ("i8g_matmul", "pipeinfer_tpu_torch/csrc/qmatmul_i8g.cu", "pipeinfer_tpu/ops/qmatmul.py:923"),
+    ):
+        keep = ("tensor", "M", "N", "K", "ms", "plain_ms", "yardstick_ms", "bound_ms", "bound_by",
+                "max_abs_err")
+        tool_rows = [{f: r[f] for f in keep} for r in rows[key]]
+        if key not in records:  # a tools-only run: its first shape stands for the kernel
+            r = rows[key][0]
+            records[key] = dict(name=key, route="cuda", source=src, replaces=tpu, launches=0,
+                                max_abs_err=max(x["max_abs_err"] for x in rows[key]),
+                                ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                                bound_by=r["bound_by"], library_ms=None,
+                                yardstick_ms=r["yardstick_ms"],
+                                shape=f"tools phase, {tool_rows[0]}")
+        records[key]["tools"] = tool_rows
+
+
+def _vocab_text(tok, n_pieces: int, seed: int) -> str:
+    """Text of n_pieces random pieces of the synthetic vocabulary (past its
+    3 control and 256 byte tokens)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return tok.decode(rng.integers(259, tok.vocab.n_vocab, n_pieces).tolist())
+
+
+def _counted(counters: dict, fn):
+    """(fn(), launches of each kernel in it): the counts set to 0 just
+    before, read just after."""
+    import torch
+
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: c.launches for k, c in counters.items()}
+
+
+def _state_round_trip(params, cfg, prompt, dtype_name: str, path: Path) -> dict:
+    """Prefill `prompt`, save the session, load it into a fresh context of
+    the same shape; TOOLS_STATE_STEPS greedy single-token steps (the cell
+    kernel over TOOLS_STATE_CELLS cells) from the live and the restored
+    context give the same tokens and bitwise equal logits."""
+    import numpy as np
+    import torch
+
+    from pipeinfer_tpu_torch.runtime import state as rstate
+    from pipeinfer_tpu_torch.runtime.context import Batch, InferenceContext
+
+    dtype = torch.bfloat16 if dtype_name == "bf16" else torch.float32
+
+    def ctx():
+        return InferenceContext(params, cfg, n_cells=TOOLS_STATE_CELLS, cache_dtype=dtype)
+
+    live = ctx()
+    b = Batch()
+    for i, t in enumerate(prompt):
+        b.add(t, i, 0, want_logits=(i == len(prompt) - 1))
+    first = int(np.argmax(live.decode(b)[-1]))
+    t0 = time.perf_counter()
+    rstate.save_state(live, path, tokens=prompt)
+    save_s = time.perf_counter() - t0
+    restored = ctx()
+    t0 = time.perf_counter()
+    if rstate.load_state(restored, path) != prompt:
+        raise AssertionError(f"[tools] state {dtype_name}: the session's tokens differ")
+    load_s = time.perf_counter() - t0
+    runs = []
+    for c in (live, restored):
+        tok, out, rows = first, [], []
+        for i in range(TOOLS_STATE_STEPS):
+            bb = Batch()
+            bb.add(tok, len(prompt) + i, 0)
+            rows.append(c.decode(bb)[0])
+            tok = int(np.argmax(rows[-1]))
+            out.append(tok)
+        runs.append((out, np.stack(rows)))
+    if runs[0][0] != runs[1][0]:
+        raise AssertionError(f"[tools] state {dtype_name}: the restored stream {runs[1][0]} "
+                             f"differs from the live one {runs[0][0]}")
+    diff = float(np.abs(runs[0][1] - runs[1][1]).max())
+    if diff != 0.0:
+        raise AssertionError(f"[tools] state {dtype_name}: the restored logits differ from the "
+                             f"live ones by up to {diff}")
+    size = path.stat().st_size
+    log(f"[tools] state round trip, {dtype_name} cache, {len(prompt)}-token prefill: save "
+        f"{save_s:.2f} s, load {load_s:.2f} s ({size / 2**20:.1f} MiB); {TOOLS_STATE_STEPS} "
+        f"greedy steps from the live and the restored context: equal tokens, bitwise equal "
+        f"logits")
+    return dict(cache=dtype_name, save_s=save_s, load_s=load_s, file_bytes=size,
+                tokens=runs[0][0])
+
+
+def run_tools_7b(counters: dict, t_path: Path, work: Path) -> dict:
+    """On the full-depth 7B Q4_K target, loaded once: perplexity over two
+    512-token windows (i4g at M = 512), bench's pp512 and tg128, the
+    batched_bench grid, beam search with 1 and 4 beams, 4 batched greedy
+    continuations, one embedding and the session state round trip over a
+    bf16 and an f32 cache."""
+    import numpy as np
+    import torch
+
+    from pipeinfer_tpu_torch.cli.main import build_context
+    from pipeinfer_tpu_torch.ops import qmatmul as Q
+    from pipeinfer_tpu_torch.runtime.context import InferenceContext
+    from pipeinfer_tpu_torch.sampling.samplers import SamplingParams
+    from pipeinfer_tpu_torch.tools import batched_bench as BB
+    from pipeinfer_tpu_torch.tools import bench as B
+    from pipeinfer_tpu_torch.tools.batched import batched_generate
+    from pipeinfer_tpu_torch.tools.beam_search import beam_search
+    from pipeinfer_tpu_torch.tools.embedding import embed_text
+    from pipeinfer_tpu_torch.tools.perplexity import perplexity
+
+    t0 = time.perf_counter()
+    ctx, tok = build_context(str(t_path), TOOLS_N_CELLS)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    params, cfg = ctx.params, ctx.cfg
+    log(f"[tools] loaded the {cfg.n_layers}L 7B target ({ctx.n_cells} cells) in {load_s:.1f} s")
+    res = dict(label="tools_7b", load_s=load_s, launches={})
+
+    text = _vocab_text(tok, 2 * TOOLS_M + 96, SEED + 7)
+    perplexity(ctx, tok, _vocab_text(tok, TOOLS_M + 32, SEED), n_ctx=TOOLS_M)  # warm-up
+    t1 = time.perf_counter()
+    (ppl, n), res["launches"]["perplexity"] = _counted(
+        counters, lambda: perplexity(ctx, tok, text, n_ctx=TOOLS_M))
+    ppl_s = time.perf_counter() - t1
+    windows = n // (TOOLS_M - 1 - TOOLS_M // 2)
+    cut = Q.i4g_matmul.last_plan
+    if not (math.isfinite(ppl) and ppl > 1 and windows >= 2):
+        raise AssertionError(f"[tools] perplexity {ppl} over {n} tokens ({windows} windows)")
+    if res["launches"]["perplexity"]["i4g_matmul"] == 0 or cut.rows * cut.row_tiles < TOOLS_M:
+        raise AssertionError(f"[tools] perplexity did not run i4g at M = {TOOLS_M}: launches "
+                             f"{res['launches']['perplexity']}, last cut {cut}")
+    res["perplexity"] = dict(ppl=ppl, n_scored=n, windows=windows, seconds=ppl_s,
+                             windows_per_s=windows / ppl_s, i4g_cut=cut._asdict())
+    log(f"[tools] perplexity (7B Q4_K, n_ctx {TOOLS_M}): ppl = {ppl:.4f} over {n} tokens, "
+        f"{windows} windows in {ppl_s:.2f} s ({windows / ppl_s:.2f} windows/s); i4g at M = "
+        f"{TOOLS_M} {res['launches']['perplexity']['i4g_matmul']} launches, cut {cut}")
+
+    (pp, tg), res["launches"]["bench"] = _counted(
+        counters, lambda: (B.bench_pp(ctx, TOOLS_M, reps=3), B.bench_tg(ctx, 128, reps=3)))
+    res["bench"] = {f"pp{TOOLS_M}": pp, "tg128": tg}
+    log(f"[tools] bench: pp{TOOLS_M} {pp:.2f} t/s, tg128 {tg:.2f} t/s (best of 3)")
+
+    lines: list = []
+    rows, res["launches"]["batched_bench"] = _counted(
+        counters, lambda: BB.grid(ctx, TOOLS_BB["pps"], TOOLS_BB["tgs"], TOOLS_BB["pls"], True,
+                                  out=lines.append))
+    res["batched_bench"] = rows
+    for line in lines:
+        log(f"[tools] {line}")
+
+    def fresh():
+        return InferenceContext(params, cfg, n_cells=TOOLS_N_CELLS)
+
+    rng = np.random.default_rng(SEED)
+    prompt = [1] + rng.integers(3, cfg.n_vocab, TOOLS_PROMPT_LEN - 1).tolist()
+    want, _ = _greedy(fresh(), prompt, TOOLS_BATCHED_N, chain=False)
+    (b1, b4), res["launches"]["beam_search"] = _counted(counters, lambda: (
+        beam_search(fresh(), prompt, TOOLS_BEAM_N, n_beams=1, eos_id=-1),
+        beam_search(fresh(), prompt, TOOLS_BEAM_N, n_beams=4, eos_id=-1)))
+    scores = [s for s, _ in b4]
+    if b1[0][1] != want[:TOOLS_BEAM_N]:
+        raise AssertionError(f"[tools] the 1-beam stream {b1[0][1]} differs from plain greedy "
+                             f"{want[:TOOLS_BEAM_N]}")
+    if len(b4) != 4 or scores != sorted(scores, reverse=True):
+        raise AssertionError(f"[tools] 4 beams: scores {scores} not sorted best first")
+    res["beam_search"] = dict(one_beam_score=b1[0][0], scores=scores,
+                              best_equals_greedy=b4[0][1] == want[:TOOLS_BEAM_N])
+    log(f"[tools] beam search, {TOOLS_BEAM_N} tokens: 1 beam == plain greedy; 4 beams sorted, "
+        f"scores {', '.join(f'{s:.3f}' for s in scores)}")
+
+    greedy = SamplingParams(temp=0.0, penalty_repeat=1.0, penalty_last_n=0)
+    outs, res["launches"]["batched"] = _counted(
+        counters, lambda: batched_generate(fresh(), prompt, TOOLS_BATCHED_N, 4, greedy, eos_id=-1))
+    if outs != [want] * 4:
+        raise AssertionError(f"[tools] batched: {outs} against plain greedy {want}")
+    log(f"[tools] batched: 4 greedy continuations of {TOOLS_BATCHED_N} tokens, each == plain "
+        f"greedy")
+
+    emb, res["launches"]["embedding"] = _counted(
+        counters, lambda: embed_text(params, cfg, prompt[:TOOLS_EMBED_LEN]))
+    norm = float(np.linalg.norm(emb))
+    if not (emb.shape == (cfg.n_embd,) and np.isfinite(emb).all() and abs(norm - 1) < 1e-4):
+        raise AssertionError(f"[tools] embedding: shape {emb.shape}, norm {norm}")
+    res["embedding"] = dict(n_embd=cfg.n_embd, norm=norm, tokens=TOOLS_EMBED_LEN)
+    log(f"[tools] embedding of {TOOLS_EMBED_LEN} tokens: [{cfg.n_embd}], norm {norm:.6f}")
+
+    state_prompt = [1] + rng.integers(3, cfg.n_vocab, TOOLS_STATE_PREFILL - 1).tolist()
+    res["state"] = []
+    for dtype_name in ("bf16", "f32"):
+        row, res["launches"][f"state_{dtype_name}"] = _counted(counters, lambda: _state_round_trip(
+            params, cfg, state_prompt, dtype_name, work / f"state_{dtype_name}.npz"))
+        res["state"].append(row)
+    del ctx, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_tools_q6k(counters: dict, path: Path) -> dict:
+    """Perplexity over two 512-token windows on the toy Q6_K target: every
+    matmul through i8g at M = 512."""
+    import torch
+
+    from pipeinfer_tpu_torch.cli.main import build_context
+    from pipeinfer_tpu_torch.tools.perplexity import perplexity
+
+    ctx, tok = build_context(str(path), TOOLS_M + 8)
+    text = _vocab_text(tok, 2 * TOOLS_M + 96, SEED + 8)
+    t0 = time.perf_counter()
+    (ppl, n), launches = _counted(counters, lambda: perplexity(ctx, tok, text, n_ctx=TOOLS_M))
+    took = time.perf_counter() - t0
+    windows = n // (TOOLS_M - 1 - TOOLS_M // 2)
+    if not (math.isfinite(ppl) and windows >= 2 and launches["i8g_matmul"] > 0):
+        raise AssertionError(f"[tools] toy Q6_K perplexity {ppl}, {windows} windows, launches "
+                             f"{launches}")
+    log(f"[tools] perplexity (toy Q6_K, n_ctx {TOOLS_M}): ppl = {ppl:.4f} over {n} tokens, "
+        f"{windows / took:.2f} windows/s; i8g {launches['i8g_matmul']} launches")
+    del ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(label="tools_q6k", ppl=ppl, n_scored=n, windows=windows, seconds=took,
+                windows_per_s=windows / took, launches=launches)
+
+
+def run_tools_prompt_cache(counters: dict, cli_target: Path, work: Path) -> dict:
+    """cli.main --prompt-cache twice on the target cut to CLI_DEPTH layers:
+    the same text; the first run prefills the prompt, the second restores
+    it and decodes only the last prompt token again."""
+    from pipeinfer_tpu_torch.cli import main as cli_main
+
+    f = work / "prompt_cache.npz"
+    f.unlink(missing_ok=True)
+    argv = ["-m", str(cli_target), "-p", CLI_PROMPT, "-n", "16", *CLI_GREEDY,
+            "--prompt-cache", str(f)]
+    runs = []
+    for _ in range(2):
+        err = io.StringIO()
+        (text, took), launches = _counted(counters, lambda: _cli_text(cli_main.main, argv, err))
+        runs.append((text, took, err.getvalue(), launches))
+    if runs[0][0] != runs[1][0]:
+        raise AssertionError(f"[tools] --prompt-cache: the second run printed {runs[1][0]!r}, the "
+                             f"first {runs[0][0]!r}")
+    if "prefill:" not in runs[0][2] or "prefill:" in runs[1][2]:
+        raise AssertionError(f"[tools] --prompt-cache: the second run did not skip the cached "
+                             f"prefix (stderr {runs[0][2]!r}, then {runs[1][2]!r})")
+    log(f"[tools] cli.main --prompt-cache twice ({CLI_DEPTH}-layer target): the same "
+        f"{len(runs[0][0])} characters ({runs[0][1]:.1f} s, then {runs[1][1]:.1f} s); the second "
+        f"skipped the cached prefix ({runs[1][2].strip().splitlines()[-1]})")
+    return dict(label="tools_prompt_cache", chars=len(runs[0][0]), seconds=[r[1] for r in runs],
+                stderr=[r[2] for r in runs], launches=runs[1][3])
+
+
+def run_tools_shapebench(counters: dict) -> dict:
+    """shapebench --model 7b --draft 1.1b: the synthesized k_major Q4_K
+    models' step and chain times against 3.35 TB/s."""
+    from pipeinfer_tpu_torch.tools import shapebench as SB
+
+    res, launches = _counted(counters, lambda: SB.probe(
+        SB.SHAPES["7b"], SB.SHAPES["1.1b"], name="7b", n_cells=2048, iters=8))
+    if launches["kmajor_matmul"] == 0:
+        raise AssertionError(f"[tools] shapebench never launched k_major: {launches}")
+    log(f"[tools] shapebench --model 7b --draft 1.1b: {json.dumps(res)}")
+    return dict(label="tools_shapebench", **res, launches=launches)
+
+
+def run_tools_live(counters: dict, live_path: Path) -> dict:
+    """The 2-layer live llama at 7B width: perplexity at n_ctx
+    TOOLS_LIVE_CTX over two windows and one embedding on the card, against
+    the port on the CPU on the same weight planes, within
+    live_check.LIVE_PPL_RTOL and LIVE_EMBED_ATOL; the card's own run with
+    every matmul moved by 3e-7 shows one other f32 order's spread, and each
+    of live_check.MASK_FAULTS on the card must land past the bars."""
+    import numpy as np
+    import torch
+
+    from pipeinfer_tpu_torch.gguf.reader import GGUFReader
+    from pipeinfer_tpu_torch.models import load_model
+    from pipeinfer_tpu_torch.runtime.context import InferenceContext, _params_to
+    from pipeinfer_tpu_torch.tokenizer import tokenizer_from_gguf
+    from pipeinfer_tpu_torch.tools import live_check as LC
+    from pipeinfer_tpu_torch.tools.embedding import embed_text
+    from pipeinfer_tpu_torch.tools.perplexity import perplexity
+
+    params, cfg = load_model(live_path)
+    cpu_params = _params_to(params, torch.device("cpu"))
+    with GGUFReader(live_path) as r:
+        tok = tokenizer_from_gguf(r)
+    text = _vocab_text(tok, 2 * TOOLS_LIVE_CTX + 64, SEED + 9)
+    ids = tok.encode(text, add_bos=True)[:TOOLS_EMBED_LEN]
+
+    def run(p, device):
+        ctx = InferenceContext(p, cfg, n_cells=TOOLS_LIVE_CTX + 8, device=device)
+        return perplexity(ctx, tok, text, n_ctx=TOOLS_LIVE_CTX)[0], embed_text(p, cfg, ids)
+
+    (ppl, emb), launches = _counted(counters, lambda: run(params, "cuda"))
+    t0 = time.perf_counter()
+    ppl_cpu, emb_cpu = run(cpu_params, "cpu")
+    cpu_s = time.perf_counter() - t0
+
+    def spread(p, e):
+        return abs(p / ppl_cpu - 1), float(np.abs(e - emb_cpu).max())
+
+    rel, emb_err = spread(ppl, emb)
+    with LC.perturbed_matmuls():
+        p2, e2 = run(params, "cuda")
+    order = (abs(p2 / ppl - 1), float(np.abs(e2 - emb).max()))
+    faults = {}
+    for name in LC.MASK_FAULTS:
+        with LC.mask_fault(name):
+            faults[name] = spread(*run(params, "cuda"))
+    log(f"[tools] live {cfg.n_layers}L llama at 7B width: ppl card {ppl:.6f}, CPU {ppl_cpu:.6f} "
+        f"(relative {rel:.3g}, bar {LC.LIVE_PPL_RTOL}); embedding max diff {emb_err:.3g} (bar "
+        f"{LC.LIVE_EMBED_ATOL}); another f32 order on the card {order[0]:.3g} / {order[1]:.3g}; "
+        f"CPU {cpu_s:.1f} s; launches {launches}")
+    log("[tools] live llama on the card under each mask fault, against the CPU (ppl relative / "
+        "embedding): " + ", ".join(f"{n} {a:.3g} / {b:.3g}" for n, (a, b) in faults.items()))
+    if not (math.isfinite(ppl) and rel <= LC.LIVE_PPL_RTOL and emb_err <= LC.LIVE_EMBED_ATOL):
+        raise AssertionError(f"[tools] live llama card against CPU: ppl {rel:.4g} (bar "
+                             f"{LC.LIVE_PPL_RTOL}), embedding {emb_err:.4g} (bar "
+                             f"{LC.LIVE_EMBED_ATOL})")
+    missed = [n for n, (a, b) in faults.items()
+              if not (a > LC.LIVE_PPL_RTOL and b > LC.LIVE_EMBED_ATOL)]
+    if missed:
+        raise AssertionError(f"[tools] live llama: the bars let {missed} through")
+    del params, cpu_params
+    gc.collect()
+    return dict(label="tools_live", ppl=ppl, ppl_cpu=ppl_cpu, ppl_rel=rel, embed_err=emb_err,
+                ppl_rtol=LC.LIVE_PPL_RTOL, embed_atol=LC.LIVE_EMBED_ATOL, f32_order=order,
+                faults=faults, launches=launches, cpu_s=cpu_s)
+
+
+def run_tools(counters: dict, records: dict) -> list:
+    """The tools phase after its kernel checks. Returns its run records and
+    adds each kernel's launches per tools run to its record."""
+    from pipeinfer_tpu_torch.tools.benchpair import cached_bench_pair, cached_llama_live, cut_depth
+
+    bench = ROOT / "build" / "bench"
+    work = ROOT / "build" / "tools"
+    work.mkdir(parents=True, exist_ok=True)
+    t_path, _ = cached_bench_pair(bench, "7b", "Q4_K", 0.02, log=log)
+    cli_target = cut_depth(t_path, t_path.with_name(f"target_d{CLI_DEPTH}.gguf"), CLI_DEPTH,
+                           log=log)
+    runs = [run_tools_7b(counters, t_path, work),
+            run_tools_q6k(counters, cached_bench_pair(bench, "toy", "Q6_K", 0.02, log=log)[0]),
+            run_tools_prompt_cache(counters, cli_target, work),
+            run_tools_shapebench(counters),
+            run_tools_live(counters, cached_llama_live(t_path, log=log))]
+    per_run = {f"7b_{k}": v for k, v in runs[0]["launches"].items()}
+    per_run.update({"q6k_perplexity": runs[1]["launches"], "prompt_cache": runs[2]["launches"],
+                    "shapebench": runs[3]["launches"], "live": runs[4]["launches"]})
+    for k in ("i4g_matmul", "i8g_matmul", "cell_attention", "kmajor_matmul"):
+        if not any(n[k] for n in per_run.values()):
+            raise AssertionError(f"[tools] no tools run launched {k}")
+    for k, rec in records.items():
+        rec["launches_tools"] = {run: n[k] for run, n in per_run.items()}
+        if not rec.get("launches"):  # a tools-only run: the phase's count
+            rec["launches"] = sum(n[k] for n in per_run.values())
+    return runs
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="kernels,main,i8g,cli,serve,arch",
-                    help="comma list of kernels, main, i8g, cli, serve, arch (default: all); "
+    ap.add_argument("--phases", default="kernels,main,i8g,cli,serve,arch,tools",
+                    help="comma list of kernels, main, i8g, cli, serve, arch, tools (default: "
+                         "all); "
                          "qmatmul runs only the i4g and i8g part of kernels, exact only the "
                          "k_major, i8 and k4 part")
     ap.add_argument("--n-predict", type=int, default=128)
@@ -1763,6 +2211,11 @@ def main() -> int:
         check_arch_shapes(records, details)
         runs.extend(run_arch(counters, records, args.n_predict))
         log(f"[arch] phase took {time.perf_counter() - t0:.1f} s")
+    if "tools" in phases:
+        t0 = time.perf_counter()
+        check_tools_shapes(records, details)
+        runs.extend(run_tools(counters, records))
+        log(f"[tools] phase took {time.perf_counter() - t0:.1f} s")
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -2,9 +2,10 @@
 (ref: examples/main/main.cpp): tokenize -> prefill -> sample/decode loop ->
 detokenize, with the full sampler chain and streaming output.
 
-Port of pipeinfer_tpu.cli.main's non-interactive path. The interactive,
-instruct and ChatML modes, infill, the prompt cache, LoRA adapters, run
-dumps and profiling are not ported yet (ROADMAP.md queue 1, "The rest of
+Port of pipeinfer_tpu.cli.main's non-interactive path, with the prompt
+cache (--prompt-cache, runtime/state.py). The interactive, instruct and
+ChatML modes, infill, LoRA adapters, run dumps and profiling are not
+ported yet (ROADMAP.md queue 1, "The rest of
 the JAX package's surface"): asking for one exits with an error that says
 so.
 """
@@ -19,6 +20,7 @@ import torch
 
 from ..gguf.reader import GGUFReader
 from ..models import load_model
+from ..runtime import state as rstate
 from ..runtime.context import Batch, InferenceContext
 from ..sampling.samplers import SamplerState
 from ..tokenizer import tokenizer_from_gguf
@@ -49,17 +51,19 @@ def build_context(model_path: str, n_cells: int, cache_dtype: str = "bf16",
 
 
 def generate(ctx, tok, sampler: SamplerState, prompt_ids, n_predict, *,
-             ignore_eos=False, stream=None, n_keep=-1, stop_check=None):
+             ignore_eos=False, stream=None, cached_prefix=0, n_keep=-1,
+             stop_check=None):
     """Greedy/sampled generation on sequence 0. Returns token ids.
 
-    When the cell array fills, the context SLIDES: the first n_keep
-    positions stay, half of the rest is discarded and the tail shifts down
-    with K re-rotation (ref: main.cpp context swapping n_keep/n_discard +
-    llama_kv_cache_seq_shift; infinite generation via --keep). The JAX
-    package's cached_prefix (prompt-cache reuse) waits with --prompt-cache
-    (ROADMAP.md queue 1, "The rest of the JAX package's surface")."""
+    cached_prefix > 0 skips prefilling that many prompt tokens (their cells
+    were restored from a session file). When the cell array fills, the
+    context SLIDES: the first n_keep positions stay, half of the rest is
+    discarded and the tail shifts down with K re-rotation (ref: main.cpp
+    context swapping n_keep/n_discard + llama_kv_cache_seq_shift; infinite
+    generation via --keep)."""
     batch = Batch()
-    for i in range(len(prompt_ids)):
+    start = min(cached_prefix, len(prompt_ids) - 1)  # always decode the last
+    for i in range(start, len(prompt_ids)):
         batch.add(prompt_ids[i], i, 0, want_logits=(i == len(prompt_ids) - 1))
     logits = ctx.decode(batch)[-1]
     out = []
@@ -96,6 +100,29 @@ def _sample_step(sampler: SamplerState, logits: np.ndarray) -> int:
     return token
 
 
+def load_prompt_cache(ctx, path: str, ids: list[int]) -> int:
+    """Restore the session file at `path` (if there is one) into ctx and
+    return how many leading prompt tokens it already holds: at most
+    len(ids) - 1, so the last prompt token is decoded again for fresh
+    logits; cells past that prefix are dropped (ref: examples/main session
+    logic). A file of another shape is ignored with a note on stderr."""
+    import os
+
+    if not os.path.exists(path):
+        return 0
+    try:
+        cached = rstate.load_state(ctx, path) or []
+    except ValueError as e:
+        print(f"prompt-cache ignored: {e}", file=sys.stderr)
+        return 0
+    if cached[: len(ids)] != ids[: len(cached)]:
+        ctx.clear_cache()
+        return 0
+    cached_prefix = min(len(cached), len(ids) - 1)
+    ctx.seq_rm(0, cached_prefix, -1)
+    return cached_prefix
+
+
 def refuse_unported(args) -> None:
     """Exit with an error naming the first option asked for that the port
     does not have yet (rather than silently running something else)."""
@@ -104,7 +131,6 @@ def refuse_unported(args) -> None:
         ("--instruct", args.instruct), ("--chatml", args.chatml),
         ("--fim-prefix/--fim-suffix (infill)",
          args.fim_prefix is not None or args.fim_suffix is not None),
-        ("--prompt-cache", bool(args.prompt_cache)),
         ("--lora/--lora-scaled", bool(args.lora or args.lora_scaled)),
         ("--logdir", bool(args.logdir)), ("--profile", bool(args.profile)),
     ]
@@ -141,7 +167,8 @@ def main(argv=None):
     p.add_argument("--color", action="store_true", help=f"colorize user input ({compat})")
     p.add_argument("--fim-prefix", default=None, help="fill-in-middle prefix (not ported yet)")
     p.add_argument("--fim-suffix", default=None, help="fill-in-middle suffix (not ported yet)")
-    p.add_argument("--prompt-cache", default="", help="session file (not ported yet)")
+    p.add_argument("--prompt-cache", default="",
+                   help="session file: reuse its matching prompt prefix, save the run to it")
     p.add_argument("--lora", action="append", default=[], metavar="GGUF",
                    help="apply a LoRA adapter at load (not ported yet)")
     p.add_argument("--lora-scaled", action="append", default=[], nargs=2,
@@ -191,11 +218,14 @@ def main(argv=None):
             for ap in args.reverse_prompt
         )
 
-    generate(
+    cached_prefix = load_prompt_cache(ctx, args.prompt_cache, ids) if args.prompt_cache else 0
+    out = generate(
         ctx, tok, sampler, ids, args.n_predict,
-        ignore_eos=args.ignore_eos, stream=stream, n_keep=args.keep,
-        stop_check=hit_reverse_prompt if args.reverse_prompt else None,
+        ignore_eos=args.ignore_eos, stream=stream, cached_prefix=cached_prefix,
+        n_keep=args.keep, stop_check=hit_reverse_prompt if args.reverse_prompt else None,
     )
+    if args.prompt_cache:
+        rstate.save_state(ctx, args.prompt_cache, tokens=ids + out)
     sys.stdout.write("\n")
     ctx.print_timings(lambda s: print(s, file=sys.stderr))
     return 0

@@ -115,14 +115,16 @@ def forward(
     cell_idx: torch.Tensor,  # int32 [T]
     valid: torch.Tensor,  # bool [T]
     seq_bits: torch.Tensor | None = None,
+    output_hidden: bool = False,  # return normed hidden states, not logits
 ) -> tuple[torch.Tensor, kv.KVCache]:
     """One decode/prefill step of any architecture: the pipeline's one
     stage that is both first and last. Returns (logits [T, n_vocab] f32,
+    or the output-normed hidden states [T, E] f32 with output_hidden,
     cache)."""
     from .staged import stage_forward  # staged builds on layer_step above
 
     return stage_forward(params, cfg, cache, tokens, pos, seq, cell_idx, valid, seq_bits,
-                         first=True, last=True, topk=None), cache
+                         first=True, last=True, topk=None, output_hidden=output_hidden), cache
 
 
 def _ffn(x, lp, cfg: ModelConfig):

@@ -25,11 +25,13 @@ from .llama import embed, linear, rope_kwargs
 
 
 def stage_forward(stage_params, cfg: ModelConfig, cache: kv.KVCache, x, pos, seq, cell_idx, valid,
-                  seq_bits, *, first: bool, last: bool, topk: int | None) -> torch.Tensor:
+                  seq_bits, *, first: bool, last: bool, topk: int | None,
+                  output_hidden: bool = False) -> torch.Tensor:
     """One stage of one step. x: int32 tokens [T] (first stage) or f32
     hidden [T, E]. Returns f32 hidden [T, E] (not last), logits [T,
-    n_vocab] or, with topk, the packed sparse head [T, 2*topk+1]. The
-    stage's cache is updated in place."""
+    n_vocab] or, with topk, the packed sparse head [T, 2*topk+1]; the last
+    stage with output_hidden returns the output-normed hidden states [T,
+    E] f32 instead of logits. The stage's cache is updated in place."""
     if first:
         h = embed(x, stage_params["tok_embd"])
         if cfg.tok_norm:
@@ -51,6 +53,8 @@ def stage_forward(stage_params, cfg: ModelConfig, cache: kv.KVCache, x, pos, seq
     if not last:
         return h.float()  # the f32 activation relay
     out = _norm(h, stage_params["output_norm"], stage_params.get("output_norm_b"), cfg)
+    if output_hidden:
+        return out.float()
     logits = linear(out, stage_params["output"]).float()
     return logits if topk is None else sparse_pack(logits, topk)
 

@@ -32,6 +32,17 @@ def cached_bench_pair(cache_dir: str | Path, scale: str, qtype_name: str, eps: f
     return t_path, d_path
 
 
+def cached_llama_live(target: str | Path, log=print) -> Path:
+    """The live llama model (testmodel.build_llama_live) of a cached bench
+    pair's target, beside it as live2.gguf, built only when missing."""
+    path = Path(target).with_name(f"live{testmodel.LLAMA_LIVE_LAYERS}.gguf")
+    if not path.exists():
+        tmp = path.with_suffix(".tmp")
+        testmodel.build_llama_live(tmp, target, log=log)
+        tmp.replace(path)
+    return path
+
+
 def cached_mpt_pair(cache_dir: str | Path, eps: float, scale: str = "mpt7b",
                     log=print) -> tuple[Path, Path, Path]:
     """(target, draft, live) GGUF paths of the MPT bench pair at `scale`

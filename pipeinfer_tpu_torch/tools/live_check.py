@@ -48,6 +48,17 @@ from ..runtime.context import Batch, InferenceContext
 # 0.015, and the weakest fault 0.19 (PERF.md): the bar sits between them,
 # about 3x from each
 LIVE_RTOL = 0.05
+# The tools' live check in chip_smoke.py (a 2-layer llama at 7B width,
+# testmodel.build_llama_live; perplexity at n_ctx 128 over two windows and
+# one 13-token embedding, card against CPU): the perplexity's relative
+# difference and the unit embeddings' max |difference|. On an H100 80GB
+# HBM3 at 700 W the card against the CPU spread 1.4e-3 and 4.4e-4, one
+# other f32 order on the card 1.8e-3 and 4.2e-4, and the weakest of
+# MASK_FAULTS moved them by 8.6e-3 and 0.023 (PERF.md): each bar sits
+# between, about 2x over the spread and 2x under the perplexity's weakest
+# fault, 7x from each side for the embedding
+LIVE_PPL_RTOL = 4e-3
+LIVE_EMBED_ATOL = 3e-3
 PREFILL = 9  # prompt tokens of the live run; 8 single-token steps follow
 STEPS = 8
 N_CELLS = 1024
@@ -118,6 +129,42 @@ def perturbed_matmuls(rel: float = 3e-7, seed: int = 0):
         yield
     finally:
         llama.qmatmul = real
+
+
+# The tools' live check: perplexity windows and the embedding's one step
+# are many rows each, so they take the dense path, whose visibility is the
+# mask (kv.attn_mask). A fault there rewrites the mask as a faulty
+# visibility rule would make it.
+
+
+def _next_cell_visible(real, cache, tok_pos, tok_seq):
+    return real(cache, tok_pos + 1, tok_seq)  # each row sees the token it predicts
+
+
+def _own_cell_hidden(real, cache, tok_pos, tok_seq):
+    return real(cache, tok_pos - 1, tok_seq)
+
+
+def _oldest_cell_hidden(real, cache, tok_pos, tok_seq):
+    return torch.where((cache.pos == 0)[None, :], kv.MASK_VALUE, real(cache, tok_pos, tok_seq))
+
+
+MASK_FAULTS = {  # name -> (attn_mask, cache, tok_pos, tok_seq) -> mask [T, C]
+    "next cell visible": _next_cell_visible,
+    "own cell hidden": _own_cell_hidden,
+    "oldest cell hidden": _oldest_cell_hidden,
+}
+
+
+@contextlib.contextmanager
+def mask_fault(name: str):
+    """Within: every step's attention mask is MASK_FAULTS[name]'s."""
+    real, rewrite = kv.attn_mask, MASK_FAULTS[name]
+    kv.attn_mask = lambda cache, tok_pos, tok_seq: rewrite(real, cache, tok_pos, tok_seq)
+    try:
+        yield
+    finally:
+        kv.attn_mask = real
 
 
 def live_tokens(n_vocab: int, seed: int) -> list[int]:

@@ -7,6 +7,7 @@ weight exporter used for logit-parity tests against transformers.
 
 from __future__ import annotations
 
+import time
 from pathlib import Path
 
 import numpy as np
@@ -336,6 +337,59 @@ def build_bench_pair(
     log(f"built {scale} bench pair in {_t.time() - t0:.1f}s "
         f"(eps={eps}, {n_layers}L target / {dl}L draft)")
     return Path(tgt_path), Path(dft_path)
+
+
+LLAMA_LIVE_LAYERS = 2
+
+
+def build_llama_live(path: str | Path, like: str | Path, *, n_layers: int = LLAMA_LIVE_LAYERS,
+                     seed: int = 7, log=lambda *a: None) -> Path:
+    """A live llama model of the widths of `like` (a build_bench_pair
+    target): its metadata, vocabulary, token embedding, output norm and
+    head as they are in `like`, and n_layers copies of one random layer
+    whose projections, attn_output and ffn_down too, are non-zero and drawn
+    at 1/sqrt(fan_in), quantized to `like`'s ffn_down format. Attention and
+    the FFN then reach the logits, and the attention scores of the normed
+    activations spread by about one, so attention stays soft (as in
+    build_mpt_bench_pair's live model)."""
+    from ..quant.formats import quantize
+    from ..gguf.reader import GGUFReader
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    with GGUFReader(like) as r:
+        arch = r.architecture
+        meta = {k: v for k, v in r.metadata.items() if k not in (Keys.ARCHITECTURE, Keys.ALIGNMENT)}
+        e = int(meta[Keys.EMBEDDING_LENGTH.format(arch=arch)])
+        ff = int(meta[Keys.FEED_FORWARD_LENGTH.format(arch=arch)])
+        kv_dim = e // int(meta[Keys.HEAD_COUNT.format(arch=arch)]) * int(
+            meta[Keys.HEAD_COUNT_KV.format(arch=arch)])
+        qt = r.tensors["blk.0.ffn_down.weight"].qtype
+        meta[Keys.BLOCK_COUNT.format(arch=arch)] = n_layers
+        w = GGUFWriter(Path(path), arch)
+        for key, val in meta.items():
+            w.add_kv(key, val)
+        for name in ("token_embd.weight", "output_norm.weight", "output.weight"):
+            info = r.tensors[name]
+            w.add_tensor(name, bytes(r.tensor_bytes(name)), shape=info.shape, qtype=info.qtype)
+
+    def proj(n_out, fan_in):
+        arr = rng.standard_normal((n_out, fan_in), dtype=np.float32) / np.float32(fan_in ** 0.5)
+        return np.asarray(quantize(arr, qt)).tobytes(), (n_out, fan_in)
+
+    layer = {"attn_q.weight": proj(e, e), "attn_k.weight": proj(kv_dim, e),
+             "attn_v.weight": proj(kv_dim, e), "attn_output.weight": proj(e, e),
+             "ffn_gate.weight": proj(ff, e), "ffn_up.weight": proj(ff, e),
+             "ffn_down.weight": proj(e, ff)}
+    for li in range(n_layers):
+        for norm in ("attn_norm.weight", "ffn_norm.weight"):
+            w.add_tensor(f"blk.{li}.{norm}", np.ones(e, np.float32))
+        for name, (payload, shape) in layer.items():
+            w.add_tensor(f"blk.{li}.{name}", payload, shape=shape, qtype=qt)
+    w.write()
+    log(f"built a {n_layers}-layer live llama of {Path(like).name}'s widths in "
+        f"{time.perf_counter() - t0:.1f}s")
+    return Path(path)
 
 
 def build_tiny_llama(

@@ -190,13 +190,55 @@ def test_module_entry_runs_as_a_program(pair):
 
 
 @pytest.mark.parametrize("extra", [["-i"], ["--interactive-first"], ["--instruct"], ["--chatml"],
-                                   ["--fim-prefix", "def f("], ["--prompt-cache", "s.bin"],
+                                   ["--fim-prefix", "def f("],
                                    ["--lora", "a.gguf"], ["--logdir", "logs"],
                                    ["--profile", "trace"]])
 def test_main_refuses_unported_options(extra, capsys):
     with pytest.raises(SystemExit) as e:
         t_main.main(["-m", "absent.gguf", "--device", "cpu", *extra])
     assert e.value.code not in (0, None) and SURFACE in str(e.value.code)
+
+
+def _run(entry, argv) -> tuple[str, str]:
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        assert entry(argv) == 0
+    return out.getvalue(), err.getvalue()
+
+
+def test_main_prompt_cache_matches_jax(pair, tmp_path, monkeypatch):
+    """--prompt-cache: the first run prefills the prompt and saves the
+    session, the second restores it and decodes only the last prompt token
+    again; both print the JAX package's text (each package on its own
+    session file), and the port resumes from the JAX package's file too."""
+    monkeypatch.delenv("PIPEINFER_WEIGHT_LAYOUT", raising=False)
+    argv = _greedy(pair, n=16)
+    n_prompt = len(_tokenizers(pair[0])[1].encode(PROMPT, add_bos=True))
+    j_file, t_file = str(tmp_path / "jax.npz"), str(tmp_path / "port.bin")
+    want = [_stdout(j_main.main, argv + ["--prompt-cache", j_file]) for _ in range(2)]
+    runs = [_run(t_main.main, argv + ["--prompt-cache", t_file, "--device", "cpu"])
+            for _ in range(2)]
+    assert want[0] == want[1] == runs[0][0] == runs[1][0]
+    assert f"prefill: {n_prompt} tokens" in runs[0][1]
+    assert "prefill:" not in runs[1][1] and "decode:  17 tokens" in runs[1][1]
+    assert Path(t_file).exists()  # written under the name given
+    got, err = _run(t_main.main, argv + ["--prompt-cache", j_file, "--device", "cpu"])
+    assert got == want[0] and "prefill:" not in err
+
+
+def test_main_prompt_cache_ignores_another_prompt_or_shape(pair, tmp_path, monkeypatch):
+    """A session of another prompt is dropped (a full prefill follows), one
+    of another cell count is ignored with a note; the text is cli.main's."""
+    monkeypatch.delenv("PIPEINFER_WEIGHT_LAYOUT", raising=False)
+    f = str(tmp_path / "s.npz")
+    _run(t_main.main, _greedy(pair, n=4) + ["-p", "zz top", "--prompt-cache", f, "--device",
+                                            "cpu"])
+    plain = _stdout(t_main.main, _greedy(pair, n=8) + ["--device", "cpu"])
+    got, err = _run(t_main.main, _greedy(pair, n=8) + ["--prompt-cache", f, "--device", "cpu"])
+    assert got == plain and "prefill:" in err
+    got, err = _run(t_main.main, _greedy(pair, n=8) + ["-c", "1024", "--prompt-cache", f,
+                                                       "--device", "cpu"])
+    assert got == plain and "prompt-cache ignored" in err and "shape mismatch" in err
 
 
 def test_speculative_refuses_unported_engines(pair):

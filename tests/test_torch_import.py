@@ -39,7 +39,9 @@ def test_import_leaves_jax_and_reference_out():
                 "spec.corrected", "models.convert", "cli.args", "cli.main", "cli.speculative",
                 "tokenizer.vocab", "tokenizer.spm", "tokenizer.bpe", "tokenizer.stream",
                 "sampling.grammar", "utils.kv_view", "models.generic", "models.staged",
-                "parallel.stages", "spec.lookahead", "cli.pipeline", "cli.lookahead"):
+                "parallel.stages", "spec.lookahead", "cli.pipeline", "cli.lookahead",
+                "runtime.state", "tools.perplexity", "tools.bench", "tools.beam_search",
+                "tools.batched", "tools.batched_bench", "tools.embedding", "tools.shapebench"):
         assert f"pipeinfer_tpu_torch.{mod}" in res["modules"]
 
 
