@@ -80,6 +80,21 @@ Phases, each failing the run (non-zero exit, no result line) on a miss:
    live llama at 7B width (non-zero attn_output and ffn_down): perplexity
    at n_ctx 128 and an embedding on the card against the CPU within
    tools/live_check's bars, and each of live_check.MASK_FAULTS past them.
+10. train, on the 2-layer live llama at 7B width (finetune's dense_params
+   of its i4g planes on the card, 667 M f32 parameters): lm_loss and its
+   gradient at B = 2, T = 64 on the card against the CPU within
+   live_check.TRAIN_LOSS_RTOL and TRAIN_GRAD_RTOL, one other f32 order
+   beside it and each of live_check.TRAIN_FAULTS past the bars; finetune's
+   `train`, 20 steps at B = 4, T = 128 (the loss below 0.9x step 0's,
+   tokens/s, peak GiB), then checkpointed after step 9 and resumed in a
+   fresh `train` (steps 10-19 within 1e-4 of the uninterrupted run's);
+   train_lora at rank 8 (the loss below 0.9x); cli.main --lora on the
+   live llama (i4g, cell attention) and, under k_major, --lora and the
+   export_lora-merged file printing the same text; last the trained model
+   quantized to Q4_K by tools.quantize, its perplexity of the corpus (i4g)
+   below the untrained model's, and cli.main -c 1024 on it. The training
+   runs themselves launch no kernel (torch matmuls, as the JAX package's
+   training calls no Pallas kernel).
 
 The last lines printed are the card line, one JSON line with a record per
 kernel, and {"ok": true, "device": {...}}. Details of every shape go to
@@ -2108,13 +2123,346 @@ def run_tools(counters: dict, records: dict) -> list:
 
 
 # ---------------------------------------------------------------------------
+# train: fine-tuning, LoRA, quantization of the result and --lora, at 7B width
+# ---------------------------------------------------------------------------
+
+TRAIN_GRAD_BT = (2, 64)  # the card-against-CPU gradient check's batch
+TRAIN_BT = (4, 128)  # finetune's and lora's defaults
+TRAIN_STEPS, TRAIN_CKPT = 20, 10  # the resume restarts at step TRAIN_CKPT
+TRAIN_LR = 1e-4  # finetune's default
+TRAIN_RESUME_RTOL = 1e-4  # the resumed run's losses against the uninterrupted run's
+LORA_RANK, LORA_STEPS, LORA_LR = 8, 20, 5e-3  # tests/test_lora.py's learning rate
+TRAIN_PIECES, TRAIN_REPEATS = 256, 8  # the corpus: 256 random vocabulary pieces, 8 times over
+TRAIN_PPL_CTX = 128
+TRAIN_CLI_N = 32
+
+
+def _loss_and_grads(params, cfg, toks):
+    """(lm_loss, every parameter's gradient) in tree-flatten order."""
+    from pipeinfer_tpu_torch.models.train import lm_loss
+    from pipeinfer_tpu_torch.tools.finetune import tree_leaves, value_and_grad
+
+    loss, grads = value_and_grad(lambda: lm_loss(params, cfg, toks), tree_leaves(params))
+    return float(loss), grads
+
+
+def _grad_spread(got, want) -> tuple[float, list[float]]:
+    """(|loss / loss_ref - 1|, each tensor's max|g - g_ref| / max|g_ref|),
+    on the device of `got`."""
+    rel = [float((g - w.to(g.device)).abs().max() / w.abs().max())
+           for g, w in zip(got[1], want[1])]
+    return abs(got[0] / want[0] - 1), rel
+
+
+def _leaf_names(params) -> list[str]:
+    """The params' names in tree_leaves order (sorted keys, layers first)."""
+    return [f"layers.{i}.{k}" for i, lp in enumerate(params["layers"]) for k in sorted(lp)] + \
+        sorted(k for k in params if k != "layers")
+
+
+def run_train_grads(counters: dict, dense, cfg, stream) -> dict:
+    """lm_loss and its gradient at TRAIN_GRAD_BT on the card against the
+    port on the CPU over the card's own dense weights; the card's run with
+    every product moved by 3e-7 (another f32 order) and each of
+    live_check.TRAIN_FAULTS on the card, each against the CPU."""
+    import numpy as np
+    import torch
+
+    from pipeinfer_tpu_torch.runtime.context import _params_to
+    from pipeinfer_tpu_torch.tools import live_check as LC
+    from pipeinfer_tpu_torch.tools.finetune import batch_at
+
+    b, t = TRAIN_GRAD_BT
+    toks = batch_at(stream, np.random.default_rng(SEED).integers(0, len(stream) - t - 1, b), t)
+    t0 = time.perf_counter()
+    card, launches = _counted(counters, lambda: _loss_and_grads(dense, cfg, toks))
+    card_s = time.perf_counter() - t0
+    cpu_params = _params_to(dense, torch.device("cpu"))
+    t0 = time.perf_counter()
+    ref = _loss_and_grads(cpu_params, cfg, toks)
+    cpu_s = time.perf_counter() - t0
+    del cpu_params
+    ref = (ref[0], [g.to(dense["output"].device) for g in ref[1]])  # the spreads on the card
+    gc.collect()
+    loss_rel, per_tensor = _grad_spread(card, ref)
+    spread = (loss_rel, max(per_tensor))
+    worst = _leaf_names(dense)[per_tensor.index(spread[1])]
+    with LC.perturbed_matmuls():
+        loss_o, grads_o = _grad_spread(_loss_and_grads(dense, cfg, toks), card)
+    order = (loss_o, max(grads_o))
+    faults = {}
+    for name in LC.TRAIN_FAULTS:
+        with LC.train_fault(name):
+            loss_f, grads_f = _grad_spread(_loss_and_grads(dense, cfg, toks), ref)
+        faults[name] = (loss_f, max(grads_f))
+    log(f"[train] lm_loss and gradient at B = {b}, T = {t}: loss card {card[0]:.6f}, CPU "
+        f"{ref[0]:.6f} (relative {spread[0]:.3g}, bar {LC.TRAIN_LOSS_RTOL}); each tensor's max "
+        f"|card - CPU| / max|CPU| at most {spread[1]:.3g} ({worst}; bar {LC.TRAIN_GRAD_RTOL}); "
+        f"another f32 order on the card {order[0]:.3g} / {order[1]:.3g}; card {card_s:.2f} s, "
+        f"CPU {cpu_s:.1f} s")
+    log("[train] the training forward under each fault, on the card against the CPU (loss / "
+        "gradients): " + ", ".join(f"{n} {a:.3g} / {g:.3g}" for n, (a, g) in faults.items()))
+    if not (math.isfinite(card[0]) and spread[0] <= LC.TRAIN_LOSS_RTOL
+            and spread[1] <= LC.TRAIN_GRAD_RTOL):
+        raise AssertionError(f"[train] card against CPU: loss {spread[0]:.4g} (bar "
+                             f"{LC.TRAIN_LOSS_RTOL}), gradients {spread[1]:.4g} (bar "
+                             f"{LC.TRAIN_GRAD_RTOL})")
+    missed = [n for n, (a, g) in faults.items()
+              if not (a > LC.TRAIN_LOSS_RTOL and g > LC.TRAIN_GRAD_RTOL)]
+    if missed:
+        raise AssertionError(f"[train] the gradient bars let {missed} through")
+    return dict(label="train_grads", B=b, T=t, loss=card[0], loss_cpu=ref[0], loss_rel=spread[0],
+                grad_rel=spread[1], grad_rel_per_tensor=dict(zip(_leaf_names(dense), per_tensor)),
+                loss_rtol=LC.TRAIN_LOSS_RTOL, grad_rtol=LC.TRAIN_GRAD_RTOL,
+                f32_order=order, faults=faults, card_s=card_s, cpu_s=cpu_s, launches=launches)
+
+
+def run_train_finetune(counters: dict, dense, cfg, stream, kv: dict, work: Path) -> dict:
+    """finetune.train for TRAIN_STEPS steps at TRAIN_BT (the loss must fall
+    below 0.9x step 0's), then the first TRAIN_CKPT steps again with a
+    checkpoint (GGUF + .opt.npz) and a fresh `train` resumed from the two
+    files, whose steps must be within TRAIN_RESUME_RTOL of the
+    uninterrupted run's. Writes the trained model to work/trained.gguf."""
+    import numpy as np
+    import torch
+
+    from pipeinfer_tpu_torch.models import load_model
+    from pipeinfer_tpu_torch.tools.finetune import dense_params, save_gguf, train
+
+    b, t = TRAIN_BT
+    kw = dict(seq_len=t, batch=b, lr=TRAIN_LR, log=lambda s: log(f"[train] {s}"), extra_kv=kv)
+    stamps = {}
+
+    def stamp(line):  # when step 0's and the last step's losses reached the host
+        stamps[line.split(":")[0]] = time.perf_counter()
+        log(f"[train] {line}")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (trained, full), launches = _counted(counters, lambda: train(
+        dense, cfg, stream, steps=TRAIN_STEPS, **dict(kw, log=stamp)))
+    took = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steady = (stamps[f"step {TRAIN_STEPS - 1}"] - stamps["step 0"]) / (TRAIN_STEPS - 1)
+    tok_s = b * t / steady
+    if not (all(math.isfinite(x) for x in full) and full[-1] < 0.9 * full[0]):
+        raise AssertionError(f"[train] finetune's loss did not fall below 0.9x: {full}")
+    log(f"[train] finetune, {TRAIN_STEPS} steps of {b} x {t} tokens (lr {TRAIN_LR}): loss "
+        f"{full[0]:.4f} -> {full[-1]:.4f} in {took:.2f} s; steps 1-{TRAIN_STEPS - 1} "
+        f"{steady * 1e3:.1f} ms each ({tok_s:.0f} tokens/s); peak {peak:.2f} GiB allocated; "
+        f"launches {launches}")
+    out = work / "trained.gguf"
+    t0 = time.perf_counter()
+    save_gguf(trained, cfg, out, kv)
+    save_s = time.perf_counter() - t0
+    del trained
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ckpt = work / "ckpt.gguf"
+    t0 = time.perf_counter()
+    _, first = train(dense, cfg, stream, steps=TRAIN_CKPT, ckpt_every=TRAIN_CKPT,
+                     ckpt_path=str(ckpt), **kw)
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rp, rcfg = load_model(ckpt, fuse=False)
+    rp = dense_params(rp)
+    _, rest = train(rp, rcfg, stream, steps=TRAIN_STEPS, resume_opt=str(ckpt) + ".opt.npz", **kw)
+    resume_s = time.perf_counter() - t0
+    ckpt_bytes = ckpt.stat().st_size + Path(str(ckpt) + ".opt.npz").stat().st_size
+    del rp
+    for f in (ckpt, Path(str(ckpt) + ".opt.npz")):
+        f.unlink()
+    gc.collect()
+    torch.cuda.empty_cache()
+    resumed = np.array(first + rest)
+    dev = float(np.abs(resumed / np.array(full) - 1).max())
+    log(f"[train] checkpoint after step {TRAIN_CKPT - 1} ({ckpt_bytes / 2**30:.2f} GiB, "
+        f"{first_s:.1f} s with its {TRAIN_CKPT} steps), resumed in a fresh train "
+        f"({resume_s:.1f} s, the load included): steps {TRAIN_CKPT}-{TRAIN_STEPS - 1} "
+        f"{', '.join(f'{x:.4f}' for x in rest[:3])}, ... against the uninterrupted run's "
+        f"within {dev:.3g} relative (bar {TRAIN_RESUME_RTOL})")
+    if len(rest) != TRAIN_STEPS - TRAIN_CKPT or dev > TRAIN_RESUME_RTOL:
+        raise AssertionError(f"[train] the resumed run's losses {first + rest} against the "
+                             f"uninterrupted {full}")
+    return dict(label="train_finetune", B=b, T=t, lr=TRAIN_LR, losses=full, resumed=first + rest,
+                resume_rel=dev, seconds=took, step_ms=steady * 1e3, tokens_per_s=tok_s,
+                peak_gib=peak,
+                save_s=save_s, ckpt_bytes=ckpt_bytes, first_s=first_s, resume_s=resume_s,
+                launches=launches, path=str(out))
+
+
+def run_train_quantized(counters: dict, trained: Path, text: str, ppl0: float,
+                        work: Path) -> dict:
+    """The trained model quantized to Q4_K by tools.quantize, its
+    perplexity of the corpus on the card (i4g) below the untrained live
+    llama's, and cli.main -c 1024 on it launching i4g and cell attention."""
+    from pipeinfer_tpu_torch.cli import main as cli_main
+    from pipeinfer_tpu_torch.cli.main import build_context
+    from pipeinfer_tpu_torch.gguf.constants import GGMLQuantType
+    from pipeinfer_tpu_torch.tools.perplexity import perplexity
+    from pipeinfer_tpu_torch.tools.quantize import quantize_file
+
+    q4k = work / "trained_q4k.gguf"
+    t0 = time.perf_counter()
+    quantize_file(str(trained), str(q4k), GGMLQuantType.Q4_K)
+    quant_s = time.perf_counter() - t0
+    trained.unlink()
+    ctx, tok = build_context(str(q4k), TRAIN_PPL_CTX + 8)
+    (ppl, n), launches = _counted(counters, lambda: perplexity(ctx, tok, text, n_ctx=TRAIN_PPL_CTX))
+    del ctx
+    log(f"[train] quantized to Q4_K in {quant_s:.1f} s; perplexity of the corpus (n_ctx "
+        f"{TRAIN_PPL_CTX}, i4g): trained {ppl:.4f}, untrained {ppl0:.4f} over {n} tokens; "
+        f"launches {launches}")
+    if not (math.isfinite(ppl) and ppl < ppl0 and launches["i4g_matmul"] > 0):
+        raise AssertionError(f"[train] the trained Q4_K model's perplexity {ppl} (untrained "
+                             f"{ppl0}), launches {launches}")
+    argv = ["-m", str(q4k), "-p", CLI_PROMPT, "-n", str(TRAIN_CLI_N), *CLI_GREEDY]
+    (text_out, cli_s), cli_launches = _counted(counters, lambda: _cli_text(cli_main.main, argv))
+    if not (cli_launches["i4g_matmul"] and cli_launches["cell_attention"]):
+        raise AssertionError(f"[train] cli.main on the trained model: launches {cli_launches}")
+    log(f"[train] cli.main -c 1024 on the trained Q4_K model: {len(text_out)} characters in "
+        f"{cli_s:.1f} s (load included); launches {cli_launches}")
+    q4k.unlink()
+    return dict(label="train_quantized", quantize_s=quant_s, ppl=ppl, ppl_untrained=ppl0,
+                n_scored=n, launches=launches, cli_s=cli_s, cli_launches=cli_launches,
+                cli_tail=text_out[-120:])
+
+
+def run_train_lora(counters: dict, dense, cfg, stream, live: Path, work: Path) -> dict:
+    """train_lora at rank LORA_RANK on the default targets (the loss must
+    fall below 0.9x its first); cli.main --lora on the live llama under the
+    default layout (i4g, cell attention); under k_major, cli.main --lora
+    and cli.main on the export_lora-merged file print the same text."""
+    import torch
+
+    from pipeinfer_tpu_torch.cli import main as cli_main
+    from pipeinfer_tpu_torch.tools.export_lora import merge_file
+    from pipeinfer_tpu_torch.tools.lora import save_adapter, train_lora
+
+    b, t = TRAIN_BT
+    t0 = time.perf_counter()
+    (lora, losses), launches = _counted(counters, lambda: train_lora(
+        dense, cfg, stream, rank=LORA_RANK, seq_len=t, batch=b, steps=LORA_STEPS, lr=LORA_LR,
+        log=lambda s: log(f"[train] lora {s}")))
+    took = time.perf_counter() - t0
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < 0.9 * losses[0]):
+        raise AssertionError(f"[train] train_lora's loss did not fall below 0.9x: {losses}")
+    adapter = work / "lora.gguf"
+    save_adapter(adapter, lora, rank=LORA_RANK, alpha=16.0)
+    del lora
+    torch.cuda.empty_cache()
+    log(f"[train] train_lora rank {LORA_RANK}, {LORA_STEPS} steps (lr {LORA_LR}): loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} in {took:.2f} s "
+        f"({LORA_STEPS * b * t / took:.0f} tokens/s); launches {launches}")
+
+    argv = ["-p", CLI_PROMPT, "-n", str(TRAIN_CLI_N), *CLI_GREEDY]
+    (text_i4g, s_i4g), l_i4g = _counted(counters, lambda: _cli_text(
+        cli_main.main, ["-m", str(live), "--lora", str(adapter), *argv]))
+    if not (l_i4g["i4g_matmul"] and l_i4g["cell_attention"]):
+        raise AssertionError(f"[train] cli.main --lora (default layout): launches {l_i4g}")
+    merged = work / "merged.gguf"
+    t0 = time.perf_counter()
+    merge_file(str(live), str(merged), [(str(adapter), 1.0)])
+    merge_s = time.perf_counter() - t0
+    with _layout("k_major"):
+        (text_lora, s_lora), l_lora = _counted(counters, lambda: _cli_text(
+            cli_main.main, ["-m", str(live), "--lora", str(adapter), *argv]))
+        (text_merged, s_merged), l_merged = _counted(counters, lambda: _cli_text(
+            cli_main.main, ["-m", str(merged), *argv]))
+    merged.unlink()
+    log(f"[train] cli.main --lora, default layout: {len(text_i4g)} characters in {s_i4g:.1f} s, "
+        f"launches {l_i4g}; k_major: --lora {s_lora:.1f} s, the export_lora-merged file "
+        f"{s_merged:.1f} s (merged in {merge_s:.1f} s), the same text: "
+        f"{text_lora == text_merged}; launches {l_lora}, {l_merged}")
+    if text_lora != text_merged:
+        raise AssertionError(f"[train] k_major: --lora printed {text_lora[-200:]!r}, the merged "
+                             f"file {text_merged[-200:]!r}")
+    if not (l_lora["kmajor_matmul"] and l_merged["kmajor_matmul"]):
+        raise AssertionError(f"[train] k_major runs never launched it: {l_lora}, {l_merged}")
+    return dict(label="train_lora", rank=LORA_RANK, losses=losses, seconds=took,
+                launches=launches, cli_i4g_s=s_i4g, cli_lora_kmajor_s=s_lora,
+                cli_merged_kmajor_s=s_merged, merge_s=merge_s, cli_launches=dict(
+                    lora_i4g=l_i4g, lora_kmajor=l_lora, merged_kmajor=l_merged),
+                text_tail=text_lora[-120:])
+
+
+def run_train(counters: dict, records: dict) -> list:
+    """The train phase on the 2-layer live llama at 7B width. Returns its
+    run records and adds each kernel's launches per train run to its
+    record."""
+    import numpy as np
+    import torch
+
+    from pipeinfer_tpu_torch.gguf.reader import GGUFReader
+    from pipeinfer_tpu_torch.models import load_model
+    from pipeinfer_tpu_torch.runtime.context import InferenceContext
+    from pipeinfer_tpu_torch.tokenizer import tokenizer_from_gguf
+    from pipeinfer_tpu_torch.tools.benchpair import cached_bench_pair, cached_llama_live
+    from pipeinfer_tpu_torch.tools.finetune import dense_params, tree_leaves, vocab_kv
+    from pipeinfer_tpu_torch.tools.perplexity import perplexity
+
+    work = ROOT / "build" / "train"
+    work.mkdir(parents=True, exist_ok=True)
+    t_path, _ = cached_bench_pair(ROOT / "build" / "bench", "7b", "Q4_K", 0.02, log=log)
+    live = cached_llama_live(t_path, log=log)
+    t0 = time.perf_counter()
+    qparams, cfg = load_model(live, fuse=False)  # training reads split slots
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    with GGUFReader(live) as r:
+        tok = tokenizer_from_gguf(r)
+    text = _vocab_text(tok, TRAIN_PIECES, SEED + 10) * TRAIN_REPEATS
+    stream = np.asarray(tok.encode(text, add_bos=True), np.int32)
+    ctx = InferenceContext(qparams, cfg, n_cells=TRAIN_PPL_CTX + 8)
+    (ppl0, _), l_ppl0 = _counted(counters, lambda: perplexity(ctx, tok, text,
+                                                              n_ctx=TRAIN_PPL_CTX))
+    del ctx
+    t0 = time.perf_counter()
+    dense = dense_params(qparams)
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t0
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_params = sum(x.numel() for x in tree_leaves(dense))
+    log(f"[train] live {cfg.n_layers}L llama at 7B width loaded in {load_s:.1f} s, dequantized "
+        f"to {n_params / 1e6:.0f} M f32 parameters in {dense_s:.2f} s; corpus {len(stream)} "
+        f"tokens; untrained perplexity {ppl0:.4f} (launches {l_ppl0})")
+    setup = dict(label="train_setup", load_s=load_s, dense_s=dense_s, n_params=n_params,
+                 corpus_tokens=len(stream), ppl_untrained=ppl0, launches=l_ppl0)
+    runs = [run_train_grads(counters, dense, cfg, stream)]
+    runs.append(run_train_finetune(counters, dense, cfg, stream, vocab_kv(live), work))
+    runs.append(run_train_lora(counters, dense, cfg, stream, live, work))
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs.append(run_train_quantized(counters, Path(runs[1]["path"]), text, ppl0, work))
+    per_run = {"untrained_ppl": l_ppl0, "grads": runs[0]["launches"],
+               "finetune": runs[1]["launches"], "lora_train": runs[2]["launches"],
+               **{f"cli_{k}": v for k, v in runs[2]["cli_launches"].items()},
+               "trained_ppl": runs[3]["launches"], "cli_trained": runs[3]["cli_launches"]}
+    for k in ("i4g_matmul", "cell_attention", "kmajor_matmul"):
+        if not any(n[k] for n in per_run.values()):
+            raise AssertionError(f"[train] no train run launched {k}")
+    for run in ("grads", "finetune", "lora_train"):
+        if any(per_run[run].values()):
+            raise AssertionError(f"[train] {run} launched a kernel: {per_run[run]}")
+    for k, rec in records.items():
+        rec["launches_train"] = {run: n[k] for run, n in per_run.items()}
+        if not rec.get("launches"):  # a train-only run: the phase's count
+            rec["launches"] = sum(n[k] for n in per_run.values())
+    return [setup, *runs]
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="kernels,main,i8g,cli,serve,arch,tools",
-                    help="comma list of kernels, main, i8g, cli, serve, arch, tools (default: "
-                         "all); "
+    ap.add_argument("--phases", default="kernels,main,i8g,cli,serve,arch,tools,train",
+                    help="comma list of kernels, main, i8g, cli, serve, arch, tools, train "
+                         "(default: all); "
                          "qmatmul runs only the i4g and i8g part of kernels, exact only the "
                          "k_major, i8 and k4 part")
     ap.add_argument("--n-predict", type=int, default=128)
@@ -2216,6 +2564,10 @@ def main() -> int:
         check_tools_shapes(records, details)
         runs.extend(run_tools(counters, records))
         log(f"[tools] phase took {time.perf_counter() - t0:.1f} s")
+    if "train" in phases:
+        t0 = time.perf_counter()
+        runs.extend(run_train(counters, records))
+        log(f"[train] phase took {time.perf_counter() - t0:.1f} s")
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

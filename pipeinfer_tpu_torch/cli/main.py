@@ -3,11 +3,11 @@
 detokenize, with the full sampler chain and streaming output.
 
 Port of pipeinfer_tpu.cli.main's non-interactive path, with the prompt
-cache (--prompt-cache, runtime/state.py). The interactive, instruct and
-ChatML modes, infill, LoRA adapters, run dumps and profiling are not
-ported yet (ROADMAP.md queue 1, "The rest of
-the JAX package's surface"): asking for one exits with an error that says
-so.
+cache (--prompt-cache, runtime/state.py) and LoRA adapters applied at load
+(--lora, --lora-scaled; tools/lora.py). The interactive, instruct and
+ChatML modes, infill, run dumps and profiling are not ported yet
+(ROADMAP.md queue 1, "The rest of the JAX package's surface"): asking for
+one exits with an error that says so.
 """
 
 from __future__ import annotations
@@ -30,9 +30,20 @@ _SURFACE = "ROADMAP.md queue 1, \"The rest of the JAX package's surface\""
 
 
 def build_context(model_path: str, n_cells: int, cache_dtype: str = "bf16",
-                  need_tokenizer=True, device="cuda"):
-    """(InferenceContext, tokenizer or None) for a GGUF model on `device`."""
-    params, cfg = load_model(model_path, device=device)
+                  need_tokenizer=True, device="cuda",
+                  lora: list[tuple[str, float]] | None = None):
+    """(InferenceContext, tokenizer or None) for a GGUF model on `device`,
+    with each (adapter path, scale) of `lora` merged into its weights."""
+    # LoRA deltas target the SPLIT projection slots: apply before fusing
+    params, cfg = load_model(model_path, device=device, fuse=False if lora else None)
+    if lora:
+        from ..models.loader import default_fuse, fuse_projections
+        from ..tools.lora import apply_lora
+
+        for adapter_path, scale in lora:
+            params = apply_lora(params, adapter_path, scale)
+        if default_fuse(device):
+            fuse_projections(params)  # an adapted (dense) slot keeps its group split
     tok = None
     with GGUFReader(model_path) as r:
         try:
@@ -131,7 +142,6 @@ def refuse_unported(args) -> None:
         ("--instruct", args.instruct), ("--chatml", args.chatml),
         ("--fim-prefix/--fim-suffix (infill)",
          args.fim_prefix is not None or args.fim_suffix is not None),
-        ("--lora/--lora-scaled", bool(args.lora or args.lora_scaled)),
         ("--logdir", bool(args.logdir)), ("--profile", bool(args.profile)),
     ]
     for name, on in asked:
@@ -170,9 +180,9 @@ def main(argv=None):
     p.add_argument("--prompt-cache", default="",
                    help="session file: reuse its matching prompt prefix, save the run to it")
     p.add_argument("--lora", action="append", default=[], metavar="GGUF",
-                   help="apply a LoRA adapter at load (not ported yet)")
+                   help="apply a LoRA adapter at load (ref: --lora; repeatable)")
     p.add_argument("--lora-scaled", action="append", default=[], nargs=2,
-                   metavar=("GGUF", "S"), help="LoRA adapter with scale S (not ported yet)")
+                   metavar=("GGUF", "S"), help="LoRA adapter with scale S (repeatable)")
     p.add_argument("--keep", type=int, default=-1,
                    help="tokens to keep when the context window slides "
                    "(-1 = whole prompt; ref: main --keep)")
@@ -182,7 +192,9 @@ def main(argv=None):
     args = p.parse_args(argv)
     refuse_unported(args)
 
-    ctx, tok = build_context(args.model, args.ctx_size, args.cache_dtype, device=args.device)
+    lora = [(f, 1.0) for f in args.lora] + [(f, float(s)) for f, s in args.lora_scaled]
+    ctx, tok = build_context(args.model, args.ctx_size, args.cache_dtype, device=args.device,
+                             lora=lora)
     sp = sampling_from_args(args)
     sampler = SamplerState(params=sp)
     if args.grammar or args.grammar_file:

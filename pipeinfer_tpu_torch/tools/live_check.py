@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..models import llama
+from ..models import train
 from ..runtime import kv_cache as kv
 from ..runtime.context import Batch, InferenceContext
 
@@ -115,20 +116,21 @@ def fault(name: str):
 
 @contextlib.contextmanager
 def perturbed_matmuls(rel: float = 3e-7, seed: int = 0):
-    """Within: every quantized matmul's output times (1 + rel * N(0, 1)),
-    drawn from `seed` on the CPU: another order of the f32 sums."""
-    real = llama.qmatmul
+    """Within: every quantized matmul's output, and every product of the
+    training forward (models/train._mm), times (1 + rel * N(0, 1)), drawn
+    from `seed` on the CPU: another order of the f32 sums."""
+    real, real_mm = llama.qmatmul, train._mm
     g = torch.Generator().manual_seed(seed)
 
-    def qmatmul(x, w):
-        y = real(x, w)
+    def moved(y):
         return y * (1 + rel * torch.randn(y.shape, generator=g, device="cpu").to(y.device))
 
-    llama.qmatmul = qmatmul
+    llama.qmatmul = lambda x, w: moved(real(x, w))
+    train._mm = lambda x, w: moved(real_mm(x, w))
     try:
         yield
     finally:
-        llama.qmatmul = real
+        llama.qmatmul, train._mm = real, real_mm
 
 
 # The tools' live check: perplexity windows and the embedding's one step
@@ -165,6 +167,65 @@ def mask_fault(name: str):
         yield
     finally:
         kv.attn_mask = real
+
+
+# The training forward's check in chip_smoke.py (the 2-layer live llama at
+# 7B width, finetune's dense_params on the card; lm_loss and its gradient
+# at B = 2, T = 64, card against CPU): the loss's relative difference and,
+# over the parameter tensors, the largest max|g_card - g_cpu| / max|g_cpu|.
+# Each of TRAIN_FAULTS on the card must land past both bars. On an H100
+# 80GB HBM3 at 700 W the card against the CPU spread 0 (the f32 loss's
+# ulp is 1e-7 of it) and 4.3e-6, one other f32 order on the card 0 and
+# 3.6e-6, and the weakest fault moved them by 9.8e-5 and 0.71 (PERF.md):
+# the loss bar sits 100 ulp over and 10x under, the gradient bar 23x over
+# the spread and 7000x under the weakest fault
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-4
+
+
+def _next_token_visible(real):
+    def mask(t, device):
+        keep = torch.tril(torch.ones((t, t), dtype=torch.bool, device=device), diagonal=1)
+        return torch.where(keep, 0.0, -1e9)
+
+    return mask
+
+
+def _first_token_hidden(real):
+    def mask(t, device):
+        m = real(t, device).clone()
+        m[1:, 0] = -1e9
+        return m
+
+    return mask
+
+
+def _rope_turned_back(real):
+    def tables(cfg, t, device):
+        cos, sin = real(cfg, t, device)
+        return cos, -sin
+
+    return tables
+
+
+TRAIN_FAULTS = {  # name -> (models.train function, (the real one) -> its faulty form)
+    "next token visible": ("causal_mask", _next_token_visible),
+    "first token hidden": ("causal_mask", _first_token_hidden),
+    "RoPE turned back": ("rope_tables", _rope_turned_back),
+}
+
+
+@contextlib.contextmanager
+def train_fault(name: str):
+    """Within: the training forward's causal mask or RoPE tables are
+    TRAIN_FAULTS[name]'s."""
+    attr, make = TRAIN_FAULTS[name]
+    real = getattr(train, attr)
+    setattr(train, attr, make(real))
+    try:
+        yield
+    finally:
+        setattr(train, attr, real)
 
 
 def live_tokens(n_vocab: int, seed: int) -> list[int]:

@@ -191,12 +191,50 @@ def test_module_entry_runs_as_a_program(pair):
 
 @pytest.mark.parametrize("extra", [["-i"], ["--interactive-first"], ["--instruct"], ["--chatml"],
                                    ["--fim-prefix", "def f("],
-                                   ["--lora", "a.gguf"], ["--logdir", "logs"],
+                                   ["--logdir", "logs"],
                                    ["--profile", "trace"]])
 def test_main_refuses_unported_options(extra, capsys):
     with pytest.raises(SystemExit) as e:
         t_main.main(["-m", "absent.gguf", "--device", "cpu", *extra])
     assert e.value.code not in (0, None) and SURFACE in str(e.value.code)
+
+
+@pytest.fixture(scope="module")
+def adapter(pair, tmp_path_factory):
+    """A LoRA adapter over the nano target's default slots (wq, wk, wv, wo)
+    with non-zero B: its wo delta lets attention reach the logits, which
+    the pair's zero wo keeps out."""
+    from pipeinfer_tpu_torch.models import load_model
+    from pipeinfer_tpu_torch.tools import lora
+
+    params, _ = load_model(pair[0], device="cpu", fuse=False)
+    factors = lora.init_lora(params, 4, lora.DEFAULT_TARGETS, seed=9)
+    g = torch.Generator().manual_seed(9)
+    factors = [{s: (a, torch.randn(b.shape, generator=g) * 0.5) for s, (a, b) in e.items()}
+               for e in factors]
+    path = tmp_path_factory.mktemp("torch_cli_lora") / "a.gguf"
+    lora.save_adapter(path, factors, rank=4, alpha=8.0)
+    return str(path)
+
+
+@pytest.mark.parametrize("layout", ["default", "k4"])
+@pytest.mark.parametrize("lora_args", [["--lora", "{a}"], ["--lora-scaled", "{a}", "0.5"],
+                                       ["--lora", "{a}", "--lora-scaled", "{a}", "-1.5"]])
+def test_main_lora_prints_the_jax_stdout(pair, adapter, layout, lora_args, monkeypatch):
+    """--lora / --lora-scaled merge the adapter at load in both packages:
+    the port prints the JAX package's text, and the adapter changes it.
+    Under the exact layouts only: the adapter's wo delta brings attention
+    into the logits, where i4g's plane refit and the port's s8 activations
+    on the CPU (ROADMAP.md queue 3) move them off the pair's wide margin."""
+    if layout == "default":
+        monkeypatch.delenv("PIPEINFER_WEIGHT_LAYOUT", raising=False)
+    else:
+        monkeypatch.setenv("PIPEINFER_WEIGHT_LAYOUT", layout)
+    argv = _greedy(pair, n=24) + [x.format(a=adapter) for x in lora_args]
+    want = _stdout(j_main.main, argv)
+    got = _stdout(t_main.main, argv + ["--device", "cpu"])
+    assert got == want
+    assert got != _stdout(t_main.main, _greedy(pair, n=24) + ["--device", "cpu"])
 
 
 def _run(entry, argv) -> tuple[str, str]:

@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: importing every module of
-pipeinfer_tpu_torch (the CLIs and the tokenizer included) loads neither jax
-nor pipeinfer_tpu, nor the `regex` package (which only a BPE vocabulary
-needs), chip_smoke.py imports neither, and the entry points refuse to fall
-back to the CPU."""
+pipeinfer_tpu_torch (the CLIs, the tokenizer and the training tools
+included) loads neither jax, optax nor pipeinfer_tpu, nor the `regex`
+package (which only a BPE vocabulary needs), chip_smoke.py imports none of
+them, and the entry points refuse to fall back to the CPU."""
 
 import ast
 import json
@@ -24,7 +24,8 @@ for n in names:
     importlib.import_module(n)
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.") or m == "pipeinfer_tpu"
-                or m.startswith("pipeinfer_tpu.") or m == "regex")
+                or m.startswith("pipeinfer_tpu.") or m == "regex" or m == "optax"
+                or m.startswith("optax."))
 print(json.dumps({"modules": names, "leaked": leaked}))
 """
 
@@ -41,7 +42,9 @@ def test_import_leaves_jax_and_reference_out():
                 "sampling.grammar", "utils.kv_view", "models.generic", "models.staged",
                 "parallel.stages", "spec.lookahead", "cli.pipeline", "cli.lookahead",
                 "runtime.state", "tools.perplexity", "tools.bench", "tools.beam_search",
-                "tools.batched", "tools.batched_bench", "tools.embedding", "tools.shapebench"):
+                "tools.batched", "tools.batched_bench", "tools.embedding", "tools.shapebench",
+                "models.train", "tools.finetune", "tools.lora", "tools.export_lora",
+                "tools.convert_train_checkpoint", "tools.quantize"):
         assert f"pipeinfer_tpu_torch.{mod}" in res["modules"]
 
 
@@ -59,7 +62,7 @@ def _imported_roots(path: Path) -> set[str]:
 def test_sources_import_no_jax(rel):
     paths = [ROOT / rel] if rel.endswith(".py") else sorted((ROOT / rel).rglob("*.py"))
     for p in paths:
-        bad = _imported_roots(p) & {"jax", "jaxlib", "pipeinfer_tpu"}
+        bad = _imported_roots(p) & {"jax", "jaxlib", "optax", "pipeinfer_tpu"}
         assert not bad, f"{p.relative_to(ROOT)} imports {bad}"
 
 
