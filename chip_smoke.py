@@ -95,6 +95,31 @@ Phases, each failing the run (non-zero exit, no result line) on a miss:
    below the untrained model's, and cli.main -c 1024 on it. The training
    runs themselves launch no kernel (torch matmuls, as the JAX package's
    training calls no Pallas kernel).
+11. llava, at LLaVA-1.5-7B width: a random CLIP ViT-L/14-336 tower and
+   LLaVA-1.5 projector (testmodel.build_mmproj, cached in build/bench/) on
+   the card against the port on the CPU for a square and a non-square
+   image within tools/live_check.CLIP_RTOL, one other f32 order beside it
+   and each of live_check.CLIP_FAULTS past it, the encode timed against
+   its f32 bound; on the 2-layer live llama at 7B width, decode_embd of
+   tok_embd rows bitwise equal to the token path in a whole bucket and
+   within live_check.PAD_SHARE of i4g's rounding in a padded one, then
+   cli.llava's prompt around the image's 576 embeddings (decode_embd at
+   T = 2048) and 32 greedy tokens (i4g and cell attention counted), the first generated
+   position's logits against the CPU within live_check.LIVE_RTOL, the same
+   image giving the same stream and another image another; `python -m
+   pipeinfer_tpu_torch.cli.llava` on a PNG printing that stream; the
+   server with --mmproj answering image requests with that text, a
+   request naming an image not sent with 400, and serve() with --mmproj
+   and --draft exiting.
+12. chat, on the 7B target cut to CLI_DEPTH layers: interactive_loop's
+   first turn == generate, then -i, --interactive-first, --instruct,
+   --chatml, --in-prefix/--in-suffix/--in-prefix-bos and a reverse prompt
+   over two scripted turns, and a small pool on which _slide_if_full must
+   shift; cli.main -i --color on a scripted stdin; on a copy of the
+   target with FIM ids, cli.infill with --logdir and --profile (the YAML
+   and a torch.profiler trace) and cli.main --fim-prefix/--fim-suffix.
+The main, serve and tools phases share one load of the full-depth 7B
+pair's files (share_pair_loads); every CLI loads its own.
 
 The last lines printed are the card line, one JSON line with a record per
 kernel, and {"ok": true, "device": {...}}. Details of every shape go to
@@ -2456,12 +2481,627 @@ def run_train(counters: dict, records: dict) -> list:
 
 
 # ---------------------------------------------------------------------------
+# llava: the image path at LLaVA-1.5-7B width
+# ---------------------------------------------------------------------------
+
+LLAVA_N = 32  # greedy tokens after the image prompt
+LLAVA_N_CELLS = 1024  # the cell pool of the generation (576 image cells + prompt + tokens)
+LLAVA_PROMPT = "describe the image in detail."
+LLAVA_WIDE = (300, 480)  # a non-square image: padded to 480 x 480, then resized to 336
+LLAVA_TOKPATH_T = 32  # tok_embd rows held against the token path: a whole bucket, no padding
+LLAVA_TOKPATH_PAD_T = 40  # and in bucket 128, whose 88 padding rows the two paths fill apart
+
+
+def _llava_images(seed: int) -> dict:
+    """A red square image, a green non-square one (each color with +-20 of
+    noise a channel) and bright noise. The 2-layer live llama's attention
+    averages over the 576 image rows, so images of the same statistics
+    (two uniform-noise images) condition its first token alike, within
+    0.1% of max|logit| of a tie on the card; these three gave first-token
+    margins of 4-8% of max|logit| on an H100 80GB HBM3 (PERF.md)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def solid(rgb, h, w):
+        px = np.asarray(rgb, np.int16) + rng.integers(-20, 21, (h, w, 3))
+        return np.clip(px, 0, 255).astype(np.uint8)
+
+    return {"square": solid((250, 10, 10), 336, 336),
+            "wide": solid((10, 230, 10), *LLAVA_WIDE),
+            "other": rng.integers(192, 256, (336, 336, 3), np.uint8)}
+
+
+def run_llava_tower(cparams, ccfg, images: dict, n_embd: int) -> tuple[dict, dict]:
+    """The CLIP ViT-L/14-336 tower and projector on the card against the
+    port on the CPU (the same weights moved there), for a square and a
+    non-square image, within live_check.CLIP_RTOL of max|embedding|; the
+    card's own run in another f32 order, and each of live_check.CLIP_FAULTS
+    on the card against the CPU, beside it. The encode's device time
+    against its f32 operation bound. Returns (record, card embeddings)."""
+    import numpy as np
+    import torch
+
+    from pipeinfer_tpu_torch.models import clip
+    from pipeinfer_tpu_torch.runtime.context import _params_to
+    from pipeinfer_tpu_torch.tools import live_check as LC
+    from pipeinfer_tpu_torch.tools.finetune import tree_leaves
+
+    cpu_params = _params_to(cparams, torch.device("cpu"))
+    embds, rel, cpu_s = {}, {}, {}
+    for name, img in images.items():
+        pixels = clip.preprocess_image(img, ccfg)
+        embds[name] = clip.encode_image(cparams, ccfg, pixels)
+        if name == "other":
+            continue
+        t0 = time.perf_counter()
+        want = clip.encode_image(cpu_params, ccfg, pixels).numpy()
+        cpu_s[name] = time.perf_counter() - t0
+        got = embds[name].cpu().numpy()
+        if not (np.isfinite(got).all() and got.shape == (ccfg.n_patches, n_embd)):
+            raise AssertionError(f"[llava] tower output {got.shape} (finite: "
+                                 f"{np.isfinite(got).all()})")
+        rel[name] = LC.spread(got, want)
+        if name == "square":
+            ref, sq_pixels = want, pixels
+    with LC.clip_other_order():
+        order = LC.spread(clip.encode_image(cparams, ccfg, sq_pixels).cpu().numpy(),
+                          embds["square"].cpu().numpy())
+    faults = {}
+    for name in LC.CLIP_FAULTS:
+        with LC.clip_fault(name):
+            faults[name] = LC.spread(clip.encode_image(cparams, ccfg, sq_pixels).cpu().numpy(),
+                                     ref)
+    px = torch.from_numpy(sq_pixels).to(cparams["mm2_w"].device)
+    ms = gpu_ms(lambda: clip.encode_image(cparams, ccfg, px), iters=5)
+    flops = clip.encode_flops(ccfg, n_embd)
+    w_bytes = nbytes(*tree_leaves(cparams))
+    b_ms, b_by = bound(w_bytes, flops, "f32")
+    log(f"[llava] CLIP tower ({ccfg.n_layers - 1} of {ccfg.n_layers} blocks, {ccfg.n_patches} "
+        f"patches) + projector to {n_embd}: card vs CPU "
+        + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+        + f" of max|embedding| (bar {LC.CLIP_RTOL}); another f32 order on the card {order:.3g}; "
+        f"encode {ms:.3f} ms on the card ({flops / 1e9:.1f} GFLOP, bound {b_ms:.3f} ms by "
+        f"{b_by}: {flops / ms / 1e9:.1f} TFLOP/s), CPU "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in cpu_s.items()))
+    log("[llava] the tower under each fault, card against CPU: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in faults.items()))
+    if max(rel.values()) > LC.CLIP_RTOL:
+        raise AssertionError(f"[llava] the tower on the card against the CPU: {rel} (bar "
+                             f"{LC.CLIP_RTOL})")
+    missed = [k for k, v in faults.items() if not v > LC.CLIP_RTOL]
+    if missed:
+        raise AssertionError(f"[llava] the {LC.CLIP_RTOL} bar lets {missed} through")
+    if LC.spread(embds["other"].cpu().numpy(), embds["square"].cpu().numpy()) < 0.05:
+        raise AssertionError("[llava] two images gave near-equal embeddings")
+    del cpu_params
+    gc.collect()
+    return dict(label="llava_tower", rel_err=rel, rtol=LC.CLIP_RTOL, f32_order=order,
+                faults=faults, encode_ms=ms, gflop=flops / 1e9, bound_ms=b_ms, bound_by=b_by,
+                cpu_s=cpu_s), embds
+
+
+def _llava_greedy(params, cfg, tok, embd, device, n: int) -> tuple:
+    """cli.llava's prompt around `embd` (prefill_image) and n greedy
+    tokens on a fresh LLAVA_N_CELLS-cell context on `device`. Returns (the
+    first generated position's logits, the tokens, prefill s, the image's
+    decode_embd s, decode s)."""
+    import numpy as np
+    import torch
+
+    from pipeinfer_tpu_torch.cli import llava as cli_llava
+    from pipeinfer_tpu_torch.cli.llava import DEFAULT_SYSTEM
+    from pipeinfer_tpu_torch.runtime.context import Batch, InferenceContext
+
+    ctx = InferenceContext(params, cfg, n_cells=LLAVA_N_CELLS, device=device)
+    sync = torch.cuda.synchronize if ctx.device.type == "cuda" else (lambda: None)
+    took = {}
+    real = ctx.decode_embd
+
+    def timed_embd(*a, **kw):
+        sync()
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        took["embd"] = time.perf_counter() - t0
+        return out
+
+    ctx.decode_embd = timed_embd
+    sync()
+    t0 = time.perf_counter()
+    logits, n_past, _ = cli_llava.prefill_image(ctx, tok, embd, DEFAULT_SYSTEM, LLAVA_PROMPT)
+    prefill_s = time.perf_counter() - t0
+    first, out = np.asarray(logits), []
+    t0 = time.perf_counter()
+    for i in range(n):
+        out.append(int(np.argmax(logits)))
+        if i == n - 1:
+            break
+        b = Batch()
+        b.add(out[-1], n_past, 0)
+        logits = ctx.decode(b)[0]
+        n_past += 1
+    sync()
+    return first, out, prefill_s, took["embd"], time.perf_counter() - t0
+
+
+def run_llava_lm(counters: dict, live: Path, embds: dict) -> tuple[dict, object]:
+    """On the 2-layer live llama at 7B width: decode_embd of tok_embd rows
+    against the token path on the card, bitwise in a whole bucket and
+    within live_check.PAD_SHARE of i4g's rounding (the i4g token path
+    against k_major's) in a padded one; cli.llava's prompt around the
+    square image's 576 embeddings (decode_embd at T = 2048) and LLAVA_N
+    greedy tokens on the card (the counted run), the first generated
+    position's logits against the port on the CPU (the same planes and
+    embeddings) within live_check.LIVE_RTOL; the same image again gives
+    the same stream, another image another stream. Returns (record,
+    tokenizer)."""
+    import numpy as np
+    import torch
+
+    from pipeinfer_tpu_torch.gguf.reader import GGUFReader
+    from pipeinfer_tpu_torch.models import load_model
+    from pipeinfer_tpu_torch.models.llama import embed
+    from pipeinfer_tpu_torch.runtime.context import Batch, InferenceContext, _params_to
+    from pipeinfer_tpu_torch.tokenizer import tokenizer_from_gguf
+    from pipeinfer_tpu_torch.tools import live_check as LC
+
+    params, cfg = load_model(live)
+    with GGUFReader(live) as r:
+        tok = tokenizer_from_gguf(r)
+    rng = np.random.default_rng(SEED + 20)
+
+    def token_path(p, toks):
+        ctx = InferenceContext(p, cfg, n_cells=LLAVA_N_CELLS)
+        b = Batch()
+        for i, t in enumerate(toks):
+            b.add(t, i, 0, want_logits=(i == len(toks) - 1))
+        return ctx.decode(b)[-1], ctx.device
+
+    def embd_path(toks):
+        ctx = InferenceContext(params, cfg, n_cells=LLAVA_N_CELLS)
+        return ctx.decode_embd(embed(torch.tensor(toks, dtype=torch.int32, device=ctx.device),
+                                     params["tok_embd"]), 0)
+
+    toks = rng.integers(3, cfg.n_vocab, LLAVA_TOKPATH_T).tolist()
+    want, dev = token_path(params, toks)
+    tokpath = float(np.abs(embd_path(toks) - want).max())
+    log(f"[llava] decode_embd of {len(toks)} tok_embd rows against the token path on the card: "
+        f"max|difference| {tokpath:.3g} ({'bitwise equal' if tokpath == 0 else 'not bitwise'})")
+    if tokpath != 0:
+        raise AssertionError(f"[llava] decode_embd against the token path, a whole bucket: {tokpath}")
+    # In a padded bucket the token path's padding rows hold token 0's row and
+    # decode_embd's zeros; under i4g they share the valid rows' activation
+    # scales, so the two part by a share of i4g's own rounding, measured as the
+    # token path's distance from the exact k_major layout on the same rows.
+    toks = rng.integers(3, cfg.n_vocab, LLAVA_TOKPATH_PAD_T).tolist()
+    want, _ = token_path(params, toks)
+    pad = LC.spread(embd_path(toks), want)
+    with _layout("k_major"):
+        exact_params, _ = load_model(live)
+    rounding = LC.spread(want, token_path(exact_params, toks)[0])
+    del exact_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[llava] decode_embd of {len(toks)} tok_embd rows (bucket 128) against the token path on "
+        f"the card: {pad:.4g} of max|logit|; the i4g token path against k_major {rounding:.4g}; "
+        f"share {pad / rounding:.3g} (bar {LC.PAD_SHARE})")
+    if not pad <= LC.PAD_SHARE * rounding:
+        raise AssertionError(f"[llava] decode_embd against the padded token path: {pad} of "
+                             f"max|logit|, over {LC.PAD_SHARE} of i4g's rounding {rounding}")
+
+    (first, stream, prefill_s, embd_s, dec_s), launches = _counted(
+        counters, lambda: _llava_greedy(params, cfg, tok, embds["square"], dev, LLAVA_N))
+    again = _llava_greedy(params, cfg, tok, embds["square"], dev, LLAVA_N)[1]
+    other = _llava_greedy(params, cfg, tok, embds["other"], dev, LLAVA_N)[1]
+    cpu_params = _params_to(params, torch.device("cpu"))
+    t0 = time.perf_counter()
+    first_cpu, stream_cpu, *_ = _llava_greedy(cpu_params, cfg, tok, embds["square"].cpu(),
+                                              torch.device("cpu"), 1)
+    cpu_s = time.perf_counter() - t0
+    del cpu_params
+    gc.collect()
+    rel = LC.spread(first, first_cpu)
+    top2 = np.sort(first)[-2:]
+    gap = float((top2[1] - top2[0]) / np.abs(first).max())
+    tok_s = (LLAVA_N - 1) / dec_s
+    log(f"[llava] live {cfg.n_layers}L llama at 7B width: prompt + 576 image rows (decode_embd "
+        f"at T = 2048: {embd_s * 1e3:.1f} ms) + prompt, prefill {prefill_s * 1e3:.1f} ms; "
+        f"{LLAVA_N} greedy tokens at {tok_s:.1f} tok/s; first generated position card vs CPU "
+        f"{rel:.4g} of max|logit| (bar {LC.LIVE_RTOL}; argmax {stream[0]} / {stream_cpu[0]}, "
+        f"top-2 gap {gap:.3g} of max|logit|, CPU {cpu_s:.1f} s); same image again equal: "
+        f"{again == stream}; another image differs: {other != stream}; launches {launches}")
+    if not (np.isfinite(first).all() and rel <= LC.LIVE_RTOL):
+        raise AssertionError(f"[llava] the first generated position, card against CPU: {rel}")
+    if again != stream or other == stream:
+        raise AssertionError(f"[llava] image conditioning: {stream} / {again} / {other}")
+    for k in ("i4g_matmul", "cell_attention"):
+        if not launches[k]:
+            raise AssertionError(f"[llava] the image generation never launched {k}: {launches}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(label="llava_lm", tokpath_max_diff=tokpath, tokpath_pad_spread=pad,
+                tokpath_pad_rounding=rounding, prefill_s=prefill_s,
+                decode_embd_ms=embd_s * 1e3, tok_s=tok_s, rel_err=rel, rtol=LC.LIVE_RTOL,
+                top2_gap=gap,
+                stream=stream, stream_other=other, cpu_s=cpu_s,
+                launches=launches), tok
+
+
+def _png_bytes(img) -> bytes:
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "PNG")
+    return buf.getvalue()
+
+
+def run_llava_entries(counters: dict, live: Path, mm: Path, images: dict, stream: list[int],
+                      tok, work: Path) -> dict:
+    """`python -m pipeinfer_tpu_torch.cli.llava` on a PNG the phase writes
+    (its stdout the in-process greedy stream, streamed); the server with
+    --mmproj: the square image's request (its content the in-process
+    greedy stream, detokenized), again (equal), the other image (different),
+    a prompt naming an image not sent (400); then serve() with --mmproj
+    and --draft (exits with the JAX package's message)."""
+    import base64
+    import threading
+    import urllib.error
+
+    import torch
+
+    from pipeinfer_tpu_torch.cli.llava import DEFAULT_SYSTEM
+    from pipeinfer_tpu_torch.serving.server import serve
+    from pipeinfer_tpu_torch.tokenizer.stream import StreamDecoder
+    from pipeinfer_tpu_torch.tools.benchpair import cached_bench_pair
+
+    sdec = StreamDecoder(tok)
+    streamed = "".join(sdec.feed(t) for t in stream)
+    text = tok.decode(stream)
+
+    png = work / "square.png"
+    png.write_bytes(_png_bytes(images["square"]))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pipeinfer_tpu_torch.cli.llava", "-m", str(live),
+                           "--mmproj", str(mm), "--image", str(png), "-n", str(LLAVA_N),
+                           *CLI_GREEDY[:-2], "-c", str(LLAVA_N_CELLS)],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0 or "encoded 576 image tokens" not in proc.stderr:
+        raise AssertionError(f"[llava] cli.llava exited {proc.returncode}: {proc.stderr[-800:]}")
+    if proc.stdout != streamed + "\n":
+        raise AssertionError(f"[llava] cli.llava printed {proc.stdout[-200:]!r}, the in-process "
+                             f"run {streamed[-200:]!r}")
+    log(f"[llava] python -m pipeinfer_tpu_torch.cli.llava: {cli_s:.1f} s (its loads included), "
+        f"the in-process text; {proc.stderr.strip().splitlines()[-1]}")
+
+    t0 = time.perf_counter()
+    # the in-process run's pool: another pool size is another cuBLAS shape in
+    # the dense prefill, and the first token is a near tie (run_llava_lm)
+    httpd, engine = serve(str(live), "127.0.0.1", 0, n_cells=LLAVA_N_CELLS, max_slots=1,
+                          mmproj_path=str(mm))
+    load_s = time.perf_counter() - t0
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    port = httpd.server_address[1]
+    prompt = f"{DEFAULT_SYSTEM}\nUSER:[img-0]\n{LLAVA_PROMPT}\nASSISTANT:"
+
+    def body(img):
+        return {"prompt": prompt, "n_predict": LLAVA_N, "temperature": 0, "ignore_eos": True,
+                "repeat_penalty": 1.0, "repeat_last_n": 0,
+                "image_data": [{"id": 0, "data": base64.b64encode(_png_bytes(img)).decode()}]}
+
+    try:
+        (replies, req_s), launches = _counted(counters, lambda: _timed(lambda: [
+            _post(port, body(images["square"])), _post(port, body(images["square"])),
+            _post(port, body(images["other"]))]))
+        try:
+            _post(port, dict(body(images["square"]), prompt="[img-3] what is it?"))
+            bad = None
+        except urllib.error.HTTPError as e:
+            bad = (e.code, json.loads(e.read())["error"])
+    finally:
+        httpd.shutdown()
+        engine.shutdown()
+    contents = [r["content"] for r in replies]
+    log(f"[llava] server --mmproj (loaded in {load_s:.1f} s): 3 image requests in {req_s:.1f} s, "
+        f"same image equal: {contents[0] == contents[1]}, the in-process text: "
+        f"{contents[0] == text}, another image differs: {contents[2] != contents[0]}; "
+        f"[img-3] not sent: {bad}; launches {launches}")
+    if not (contents[0] == contents[1] == text and contents[2] != contents[0]):
+        raise AssertionError(f"[llava] server replies {[c[-80:] for c in contents]}")
+    if bad is None or bad[0] != 400 or "no image_data with id 3" not in bad[1]:
+        raise AssertionError(f"[llava] a request naming a missing image: {bad}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, draft = cached_bench_pair(ROOT / "build" / "bench", "7b", "Q4_K", 0.02, log=log)
+    try:
+        serve(str(live), "127.0.0.1", 0, n_cells=LLAVA_N_CELLS, mmproj_path=str(mm),
+              draft_path=str(draft))
+        refused = None
+    except SystemExit as e:
+        refused = str(e.code)
+    if refused != "error: --mmproj and --draft cannot be combined yet":
+        raise AssertionError(f"[llava] serve with --mmproj and --draft: {refused!r}")
+    log(f"[llava] serve with --mmproj and --draft: {refused}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(label="llava_entries", cli_s=cli_s, server_load_s=load_s, requests_s=req_s,
+                launches=launches, missing_image=bad, mmproj_with_draft=refused)
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def run_llava(counters: dict, records: dict) -> list:
+    """The llava phase: the ViT-L/14-336 mmproj (testmodel.build_mmproj,
+    cached under build/bench/) and the live llama at 7B width (see the
+    module docstring). Returns its run records and adds each kernel's
+    launches per llava run to its record."""
+    import torch
+
+    from pipeinfer_tpu_torch.models import clip
+    from pipeinfer_tpu_torch.tools.benchpair import (cached_bench_pair, cached_llama_live,
+                                                     cached_mmproj)
+
+    bench = ROOT / "build" / "bench"
+    work = ROOT / "build" / "llava"
+    work.mkdir(parents=True, exist_ok=True)
+    t_path, _ = cached_bench_pair(bench, "7b", "Q4_K", 0.02, log=log)
+    live = cached_llama_live(t_path, log=log)
+    mm = cached_mmproj(bench, seed=SEED, log=log)
+    t0 = time.perf_counter()
+    cparams, ccfg = clip.load_mmproj(mm)
+    torch.cuda.synchronize()
+    log(f"[llava] mmproj ({mm.stat().st_size / 2**30:.2f} GiB) loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    images = _llava_images(SEED + 21)
+    tower, embds = run_llava_tower(cparams, ccfg, images, cparams["mm2_w"].shape[0])
+    del cparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm, tok = run_llava_lm(counters, live, embds)
+    entries = run_llava_entries(counters, live, mm, images, lm["stream"], tok, work)
+    per_run = {"generate": lm["launches"], "server": entries["launches"]}
+    for k, rec in records.items():
+        rec["launches_llava"] = {run: n[k] for run, n in per_run.items()}
+        if not rec.get("launches"):  # a llava-only run: the phase's count
+            rec["launches"] = sum(n[k] for n in per_run.values())
+    return [tower, lm, entries]
+
+
+# ---------------------------------------------------------------------------
+# chat: cli.main's interactive, instruct and ChatML modes, infill, --logdir
+# and --profile on the 7B target cut to CLI_DEPTH layers
+# ---------------------------------------------------------------------------
+
+CHAT_N = 16  # tokens a turn
+CHAT_TURNS = "tell me about the sea\nand then what\n"  # two turns, then EOF
+CHAT_SMALL_CELLS = 96  # a pool the 65-token prompt and the turns fill: _slide_if_full shifts
+
+
+def _chat_args(**kw):
+    base = dict(interactive=True, interactive_first=False, instruct=False, chatml=False,
+                reverse_prompt=[], in_prefix="", in_suffix="", input_prefix_bos=False, keep=-1,
+                n_predict=CHAT_N, ignore_eos=True, color=False)
+    base.update(kw)
+    return argparse.Namespace(**base)
+
+
+def _scripted(text: str):
+    lines = iter(text.splitlines())
+
+    def fn():
+        try:
+            return next(lines)
+        except StopIteration:
+            raise EOFError
+
+    return fn
+
+
+def run_chat_loops(counters: dict, target: Path) -> dict:
+    """interactive_loop on the target loaded once, each run on a fresh
+    context: the first turn (EOF at the first read) == cli.main's
+    generate; -i, --interactive-first, instruct, ChatML, --in-prefix /
+    --in-suffix / --in-prefix-bos and a reverse prompt over two turns; a
+    CHAT_SMALL_CELLS-cell pool on which _slide_if_full must shift."""
+    from pipeinfer_tpu_torch.cli import main as cli_main
+    from pipeinfer_tpu_torch.sampling.samplers import SamplerState, SamplingParams
+
+    greedy = SamplingParams(temp=0.0, penalty_repeat=1.0, penalty_last_n=0)
+    ctx, tok = cli_main.build_context(str(target), 1024)
+    params, cfg = ctx.params, ctx.cfg
+    del ctx
+    prompt = tok.encode(CLI_PROMPT, add_bos=True)
+
+    def fresh(n_cells=1024):
+        return cli_main.InferenceContext(params, cfg, n_cells=n_cells)
+
+    plain = cli_main.generate(fresh(), tok, SamplerState(params=greedy), prompt, CHAT_N,
+                              ignore_eos=True)
+    anti = tok.decode(plain[2:3])
+    cases = {
+        "first_turn": (_chat_args(), ""),
+        "interactive": (_chat_args(), CHAT_TURNS),
+        "interactive_first": (_chat_args(interactive_first=True), CHAT_TURNS),
+        "instruct": (_chat_args(instruct=True), CHAT_TURNS),
+        "chatml": (_chat_args(chatml=True), CHAT_TURNS),
+        "prefix_suffix_bos": (_chat_args(in_prefix="User: ", in_suffix="Bot: ",
+                                         input_prefix_bos=True), CHAT_TURNS),
+        "reverse_prompt": (_chat_args(reverse_prompt=[anti]), CHAT_TURNS),
+        "slide": (_chat_args(keep=4), CHAT_TURNS + "more\nmore\n"),
+    }
+    slides = []
+    real_slide = cli_main._slide_if_full
+
+    def counting_slide(ctx, n_past, n_keep, need=1):
+        out = real_slide(ctx, n_past, n_keep, need)
+        if out != n_past:
+            slides.append(n_past - out)
+        return out
+
+    res, launches = {}, {}
+    cli_main._slide_if_full = counting_slide
+    try:
+        for name, (args, turns) in cases.items():
+            writes = []
+            n_cells = CHAT_SMALL_CELLS if name == "slide" else 1024
+            before = len(slides)
+            (ids, t_s), launches[name] = _counted(counters, lambda: _timed(
+                lambda: cli_main.interactive_loop(
+                    fresh(n_cells), tok, SamplerState(params=greedy), prompt, args,
+                    input_fn=_scripted(turns), write=writes.append)))
+            res[name] = dict(tokens=len(ids), seconds=t_s, slides=len(slides) - before,
+                             text_tail="".join(writes)[-80:])
+            if name == "first_turn" and ids != plain:
+                raise AssertionError(f"[chat] first interactive turn {ids} != generate {plain}")
+            if name == "reverse_prompt" and not len(ids) < 3 * CHAT_N:
+                raise AssertionError(f"[chat] reverse prompt {anti!r} never stopped a turn")
+            if name in ("instruct", "chatml") and "\n> " not in "".join(writes):
+                raise AssertionError(f"[chat] {name} never prompted '> '")
+            if name == "prefix_suffix_bos" and not ("User: " in "".join(writes)
+                                                    and "Bot: " in "".join(writes)):
+                raise AssertionError("[chat] --in-prefix / --in-suffix never written")
+    finally:
+        cli_main._slide_if_full = real_slide
+    if not res["slide"]["slides"]:
+        raise AssertionError(f"[chat] the {CHAT_SMALL_CELLS}-cell pool never slid")
+    log(f"[chat] interactive_loop on the {cfg.n_layers}-layer 7B target: first turn == "
+        f"generate ({CHAT_N} tokens); " + "; ".join(
+            f"{k} {v['tokens']} tokens {v['seconds']:.2f} s" for k, v in res.items())
+        + f"; the {CHAT_SMALL_CELLS}-cell pool slid {res['slide']['slides']} times "
+        f"(discarding {slides}); launches per run: "
+        + ", ".join(f"{k} i4g {n['i4g_matmul']} cell {n['cell_attention']}"
+                    for k, n in launches.items()))
+    for k in ("i4g_matmul", "cell_attention"):
+        if not launches["interactive"][k]:
+            raise AssertionError(f"[chat] the interactive run never launched {k}")
+    return dict(label="chat_loops", runs=res, slides=slides, launches=launches)
+
+
+def run_chat_clis(counters: dict, target: Path, work: Path) -> dict:
+    """cli.main -i --color (reading a scripted stdin) with --in-prefix /
+    --in-suffix / --in-prefix-bos; on a copy of the target whose
+    vocabulary carries FIM ids (testmodel.with_fim_ids), cli.infill with
+    --logdir and --profile (the YAML's output tokens, a trace file in DIR)
+    and cli.main --fim-prefix / --fim-suffix."""
+    import re
+    import shutil
+
+    import yaml
+
+    from pipeinfer_tpu_torch.cli import infill as cli_infill
+    from pipeinfer_tpu_torch.cli import main as cli_main
+    from pipeinfer_tpu_torch.tools.testmodel import with_fim_ids
+
+    real_stdin = sys.stdin
+    sys.stdin = io.StringIO(CHAT_TURNS)
+    try:
+        (chat, chat_s), l_chat = _counted(counters, lambda: _cli_text(cli_main.main, [
+            "-m", str(target), "-p", CLI_PROMPT, "-n", str(CHAT_N), *CLI_GREEDY, "-i", "--color",
+            "--in-prefix", "User: ", "--in-suffix", "Bot: ", "--in-prefix-bos"]))
+    finally:
+        sys.stdin = real_stdin
+    if not (cli_main._ANSI_USER in chat and "User: " in chat and "Bot: " in chat):
+        raise AssertionError(f"[chat] cli.main -i --color printed {chat[-300:]!r}")
+    fim = with_fim_ids(target, work / "target_fim.gguf")
+    logdir, trace = work / "logs", work / "trace"
+    for d in (logdir, trace):  # this run's files only
+        shutil.rmtree(d, ignore_errors=True)
+    err = io.StringIO()
+    (infill, infill_s), l_infill = _counted(counters, lambda: _cli_text(
+        cli_infill.main, ["-m", str(fim), "-p", "def fib(n):", "-n", str(CHAT_N), *CLI_GREEDY,
+                          "--in-prefix", "def fib(n):", "--in-suffix", "return a",
+                          "--logdir", str(logdir), "--profile", str(trace)], err))
+    dumps = list(logdir.glob("run-*.yml"))
+    doc = yaml.safe_load(dumps[0].read_text()) if len(dumps) == 1 else {}
+    traces = list(trace.glob("*.json"))
+    trace_text = traces[0].read_text() if traces else ""
+    cuda_events = len(re.findall(r'"cat":\s*"kernel"', trace_text))
+    kernels_traced = len(re.findall(r'"name":\s*"[^"]*(i4g_kernel|split_kernel)', trace_text))
+    if not (len(doc.get("output_tokens", [])) == CHAT_N and f"profile trace -> {trace}"
+            in err.getvalue() and traces):
+        raise AssertionError(f"[chat] --logdir / --profile: dumps {dumps}, traces {traces}, "
+                             f"stderr {err.getvalue()[-300:]!r}")
+    (fimtext, fim_s), l_fim = _counted(counters, lambda: _cli_text(
+        cli_main.main, ["-m", str(fim), "--fim-prefix", "def fib(n):", "--fim-suffix",
+                        "    return a", "-n", str(CHAT_N), *CLI_GREEDY]))
+    fim.unlink()
+    log(f"[chat] cli.main -i --color with --in-prefix/--in-suffix/--in-prefix-bos: "
+        f"{len(chat)} characters in {chat_s:.1f} s; cli.infill with --logdir "
+        f"({len(doc['output_tokens'])} output tokens in the YAML) and --profile "
+        f"({traces[0].stat().st_size / 2**20:.1f} MiB trace, {cuda_events} CUDA kernel events, "
+        f"{kernels_traced} of them the port's i4g and cell-attention kernels) in {infill_s:.1f} s; "
+        f"--fim-prefix/--fim-suffix {len(fimtext)} characters in {fim_s:.1f} s")
+    for name, n in (("chat", l_chat), ("infill", l_infill), ("fim", l_fim)):
+        if not (n["i4g_matmul"] and n["cell_attention"]):
+            raise AssertionError(f"[chat] cli run {name} launches {n}")
+    return dict(label="chat_clis", chat_s=chat_s, infill_s=infill_s, fim_s=fim_s,
+                trace_mib=traces[0].stat().st_size / 2**20, cuda_events=cuda_events,
+                port_kernel_events=kernels_traced, yaml_output_tokens=len(doc["output_tokens"]),
+                launches=dict(chat=l_chat, infill=l_infill, fim=l_fim))
+
+
+def run_chat(counters: dict, records: dict) -> list:
+    """The chat phase on the 7B Q4_K target cut to CLI_DEPTH layers.
+    Returns its run records and adds each kernel's launches per chat run
+    to its record."""
+    from pipeinfer_tpu_torch.tools.benchpair import cached_bench_pair, cut_depth
+
+    work = ROOT / "build" / "chat"
+    work.mkdir(parents=True, exist_ok=True)
+    t_path, _ = cached_bench_pair(ROOT / "build" / "bench", "7b", "Q4_K", 0.02, log=log)
+    target = cut_depth(t_path, t_path.with_name(f"target_d{CLI_DEPTH}.gguf"), CLI_DEPTH, log=log)
+    loops = run_chat_loops(counters, target)
+    clis = run_chat_clis(counters, target, work)
+    per_run = {**loops["launches"], **{f"cli_{k}": v for k, v in clis["launches"].items()}}
+    for k, rec in records.items():
+        rec["launches_chat"] = {run: n[k] for run, n in per_run.items()}
+        if not rec.get("launches"):
+            rec["launches"] = sum(n[k] for n in per_run.values())
+    return [loops, clis]
+
+
+# ---------------------------------------------------------------------------
+
+
+def share_pair_loads(pair_dir: Path) -> dict:
+    """From here on, a load of the full-depth 7B bench pair's target or
+    draft (the main, serve and tools phases each load the target, the
+    first two the draft, through load_model, the server's build_context and
+    the tools' build_context) hands out the params its first load of the
+    same arguments and weight layout made, instead of reading the 4 GB file
+    again: the run keeps them on the card. Returns the memo (arguments ->
+    (params, config))."""
+    from pipeinfer_tpu_torch import device as port_device
+    from pipeinfer_tpu_torch import models
+    from pipeinfer_tpu_torch.cli import main as cli_main
+    from pipeinfer_tpu_torch.models import loader
+
+    real, memo = loader.load_model, {}
+    shared = {(pair_dir / n).resolve() for n in ("target.gguf", "draft.gguf")}
+
+    def load_model(path, *, device=None, fuse=None):
+        key = (Path(path).resolve(), str(port_device.resolve(device)), fuse,
+               os.environ.get("PIPEINFER_WEIGHT_LAYOUT"))
+        if key[0] not in shared:
+            return real(path, device=device, fuse=fuse)
+        if key not in memo:
+            memo[key] = real(path, device=device, fuse=fuse)
+        return memo[key]
+
+    loader.load_model = models.load_model = cli_main.load_model = load_model
+    return memo
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="kernels,main,i8g,cli,serve,arch,tools,train",
-                    help="comma list of kernels, main, i8g, cli, serve, arch, tools, train "
+    ap.add_argument("--phases", default="kernels,main,i8g,cli,serve,arch,tools,train,llava,chat",
+                    help="comma list of kernels, main, i8g, cli, serve, arch, tools, train, "
+                         "llava, chat "
                          "(default: all); "
                          "qmatmul runs only the i4g and i8g part of kernels, exact only the "
                          "k_major, i8 and k4 part")
@@ -2506,6 +3146,7 @@ def main() -> int:
     records: dict = {}
     details: list = []
     runs: list = []
+    share_pair_loads(ROOT / "build" / "bench" / "7b_Q4_K_eps0.02_vocab")
     if phases & {"kernels", "qmatmul"}:
         phase_qmatmul(records, details)
     if phases & {"kernels", "exact"}:
@@ -2568,6 +3209,14 @@ def main() -> int:
         t0 = time.perf_counter()
         runs.extend(run_train(counters, records))
         log(f"[train] phase took {time.perf_counter() - t0:.1f} s")
+    if "llava" in phases:
+        t0 = time.perf_counter()
+        runs.extend(run_llava(counters, records))
+        log(f"[llava] phase took {time.perf_counter() - t0:.1f} s")
+    if "chat" in phases:
+        t0 = time.perf_counter()
+        runs.extend(run_chat(counters, records))
+        log(f"[chat] phase took {time.perf_counter() - t0:.1f} s")
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

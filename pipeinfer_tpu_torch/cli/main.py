@@ -2,17 +2,20 @@
 (ref: examples/main/main.cpp): tokenize -> prefill -> sample/decode loop ->
 detokenize, with the full sampler chain and streaming output.
 
-Port of pipeinfer_tpu.cli.main's non-interactive path, with the prompt
-cache (--prompt-cache, runtime/state.py) and LoRA adapters applied at load
-(--lora, --lora-scaled; tools/lora.py). The interactive, instruct and
-ChatML modes, infill, run dumps and profiling are not ported yet
-(ROADMAP.md queue 1, "The rest of the JAX package's surface"): asking for
-one exits with an error that says so.
+Port of pipeinfer_tpu.cli.main: one-shot generation with the prompt cache
+(--prompt-cache, runtime/state.py) and LoRA adapters applied at load
+(--lora, --lora-scaled; tools/lora.py), the interactive, instruct and
+ChatML chat loop (interactive_loop), fill-in-middle prompts (--fim-prefix,
+--fim-suffix; cli/infill.py), YAML run dumps (--logdir, utils/rundump.py)
+and a profiler trace of the run (--profile DIR: torch.profiler over the
+CPU and, on the card, CUDA activity, written to DIR for TensorBoard or
+Perfetto, where the JAX package writes jax.profiler's trace).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 
 import numpy as np
@@ -25,8 +28,6 @@ from ..runtime.context import Batch, InferenceContext
 from ..sampling.samplers import SamplerState
 from ..tokenizer import tokenizer_from_gguf
 from .args import add_gen_args, add_model_args, add_sampling_args, read_prompt, sampling_from_args
-
-_SURFACE = "ROADMAP.md queue 1, \"The rest of the JAX package's surface\""
 
 
 def build_context(model_path: str, n_cells: int, cache_dtype: str = "bf16",
@@ -111,6 +112,191 @@ def _sample_step(sampler: SamplerState, logits: np.ndarray) -> int:
     return token
 
 
+def _slide_if_full(ctx, n_past: int, n_keep: int, need: int = 1) -> int:
+    """Context sliding: keep the first n_keep positions, discard half of the
+    rest, shift the tail down re-rotating K (ref: main.cpp context swapping
+    + llama_kv_cache_seq_shift)."""
+    while ctx.n_free_cells < need and n_past > n_keep + 2:
+        n_discard = max(need, (n_past - n_keep) // 2)
+        ctx.seq_rm(0, n_keep, n_keep + n_discard)
+        ctx.seq_shift(0, n_keep + n_discard, n_past, -n_discard)
+        n_past -= n_discard
+    return n_past
+
+
+_ANSI_USER = "\x1b[32m"  # green user input (ref: console.cpp user_input)
+_ANSI_RESET = "\x1b[0m"
+
+
+def interactive_loop(ctx, tok, sampler: SamplerState, prompt_ids, args, *,
+                     input_fn=None, write=None) -> list[int]:
+    """Interactive / instruct / chatml chat loop — the reference `main`
+    state machine (ref: examples/main/main.cpp:497-860): generate until a
+    reverse prompt, EOS, or the per-turn token budget, then read a user
+    line, wrap it with the mode's prefixes/suffixes, queue it for decode,
+    and continue. An empty input line passes control back to the model;
+    EOF (ctrl-D) exits. Returns all generated token ids.
+
+    input_fn/write are injectable for tests (default: stdin/stdout)."""
+    if write is None:
+        def write(s):
+            sys.stdout.write(s)
+            sys.stdout.flush()
+    real_stdin = input_fn is None
+    color = getattr(args, "color", False) and real_stdin
+    if input_fn is None:
+        def input_fn():
+            if color:
+                sys.stdout.write(_ANSI_USER)
+                sys.stdout.flush()
+            try:
+                return input()
+            finally:
+                if color:
+                    sys.stdout.write(_ANSI_RESET)
+                    sys.stdout.flush()
+
+    from ..tokenizer.stream import StreamDecoder
+
+    sdec = StreamDecoder(tok)
+    enc = lambda s: tok.encode(s, add_bos=False)  # noqa: E731
+
+    # mode prefixes/suffixes (ref: main.cpp:337-345)
+    inp_pfx = enc("\n\n### Instruction:\n\n")
+    inp_sfx = enc("\n\n### Response:\n\n")
+    cml_pfx = enc("\n<|im_start|>user\n")
+    cml_sfx = enc("<|im_end|>\n<|im_start|>assistant\n")
+
+    antiprompts = list(getattr(args, "reverse_prompt", []) or [])
+    if args.instruct:
+        antiprompts.append("### Instruction:\n\n")
+    elif getattr(args, "chatml", False):
+        antiprompts.append("<|im_start|>user\n")
+
+    n_keep = len(prompt_ids) if args.keep < 0 else args.keep
+    if args.instruct or getattr(args, "chatml", False):
+        n_keep = len(prompt_ids)  # ref: main.cpp:331-333
+
+    pending = list(prompt_ids)  # embd_inp queue: prompt, then each user turn
+    out_ids: list[int] = []
+    n_past = 0
+    logits = None
+    tail = ""  # rolling generated-text tail for reverse-prompt search
+    is_interacting = bool(
+        args.interactive_first or args.instruct or getattr(args, "chatml", False)
+    )
+    was_antiprompt = is_interacting  # instruct/chatml: first turn needs no pfx
+    n_remain = args.n_predict
+
+    # ctrl-C returns control to the user instead of killing the process
+    # (ref: main.cpp sigint_handler)
+    interrupted = [False]
+    sig_ctx = contextlib.nullcontext()
+    if real_stdin:
+        import signal
+
+        class _SigintScope(contextlib.AbstractContextManager):
+            def __enter__(self):
+                self.prev = signal.signal(
+                    signal.SIGINT, lambda *_: interrupted.__setitem__(0, True)
+                )
+                return self
+
+            def __exit__(self, *exc):
+                signal.signal(signal.SIGINT, self.prev)
+                return False
+
+        sig_ctx = _SigintScope()
+
+    with sig_ctx:
+        while True:
+            if pending:
+                n_past = _slide_if_full(ctx, n_past, n_keep, need=len(pending))
+                batch = Batch()
+                for i, t in enumerate(pending):
+                    batch.add(t, n_past + i, 0,
+                              want_logits=(i == len(pending) - 1))
+                    sampler.accept(t, apply_grammar=False)
+                logits = ctx.decode(batch)[-1]
+                n_past += len(pending)
+                pending = []
+            elif not is_interacting:
+                token = _sample_step(sampler, logits)
+                out_ids.append(token)
+                piece = sdec.feed(token)
+                write(piece)
+                tail = (tail + piece)[-256:]
+                n_remain -= 1
+                # the sampled token always enters the context — the next
+                # user turn continues after it (ref: main.cpp decodes embd
+                # at the top of the loop)
+                n_past = _slide_if_full(ctx, n_past, n_keep)
+                batch = Batch()
+                batch.add(token, n_past, 0)
+                logits = ctx.decode(batch)[0]
+                n_past += 1
+
+                hit_anti = False
+                for ap in antiprompts:
+                    start = max(0, len(tail) - len(ap) - 2)
+                    if tail.find(ap, start) != -1:
+                        hit_anti = True
+                        break
+                if hit_anti:
+                    is_interacting = was_antiprompt = True
+                elif token == tok.vocab.eos_id and not args.ignore_eos:
+                    # EOS: interactive injects the first reverse prompt and
+                    # returns control (ref: main.cpp:752-768)
+                    if not (args.instruct or getattr(args, "chatml", False)) \
+                            and antiprompts:
+                        pending.extend(enc(antiprompts[0]))
+                        was_antiprompt = True
+                    write("\n")
+                    is_interacting = True
+                elif n_remain == 0 and args.n_predict >= 0:
+                    is_interacting = True
+                elif interrupted[0]:
+                    interrupted[0] = False
+                    write("\n")
+                    is_interacting = True
+
+            if is_interacting and not pending:
+                if args.instruct or getattr(args, "chatml", False):
+                    write("\n> ")
+                if args.in_prefix:
+                    write(args.in_prefix)
+                try:
+                    buf = input_fn()
+                except EOFError:
+                    break
+                if buf is None:
+                    break
+                if len(buf) >= 1 and buf.strip():
+                    turn: list[int] = []
+                    if getattr(args, "input_prefix_bos", False):
+                        turn.append(tok.vocab.bos_id)
+                    if args.instruct and not was_antiprompt:
+                        turn.extend(inp_pfx)
+                    if getattr(args, "chatml", False) and not was_antiprompt:
+                        turn.extend(cml_pfx)
+                    if args.in_prefix:
+                        turn.extend(enc(args.in_prefix))
+                    turn.extend(enc(buf))
+                    if args.in_suffix:
+                        write(args.in_suffix)
+                        turn.extend(enc(args.in_suffix))
+                    if args.instruct:
+                        turn.extend(inp_sfx)
+                    if getattr(args, "chatml", False):
+                        turn.extend(cml_sfx)
+                    pending.extend(turn)
+                # empty line: pass control back with no new input
+                was_antiprompt = False
+                is_interacting = False
+                n_remain = args.n_predict
+    return out_ids
+
+
 def load_prompt_cache(ctx, path: str, ids: list[int]) -> int:
     """Restore the session file at `path` (if there is one) into ctx and
     return how many leading prompt tokens it already holds: at most
@@ -134,20 +320,14 @@ def load_prompt_cache(ctx, path: str, ids: list[int]) -> int:
     return cached_prefix
 
 
-def refuse_unported(args) -> None:
-    """Exit with an error naming the first option asked for that the port
-    does not have yet (rather than silently running something else)."""
-    asked = [
-        ("-i/--interactive", args.interactive), ("--interactive-first", args.interactive_first),
-        ("--instruct", args.instruct), ("--chatml", args.chatml),
-        ("--fim-prefix/--fim-suffix (infill)",
-         args.fim_prefix is not None or args.fim_suffix is not None),
-        ("--logdir", bool(args.logdir)), ("--profile", bool(args.profile)),
-    ]
-    for name, on in asked:
-        if on:
-            raise SystemExit(f"error: {name} is not ported to pipeinfer_tpu_torch yet "
-                             f"({_SURFACE})")
+def profile_to(trace_dir: str, device: torch.device):
+    """A torch.profiler context over the CPU and (on a CUDA device) the
+    card's activity, which writes its trace into trace_dir when it exits
+    (the JAX package opens jax.profiler.trace(trace_dir) here)."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    return profile(activities=acts, on_trace_ready=tensorboard_trace_handler(trace_dir))
 
 
 def main(argv=None):
@@ -155,28 +335,34 @@ def main(argv=None):
     add_model_args(p)
     add_gen_args(p)
     add_sampling_args(p)
-    # the JAX package's options, so the same command lines parse; those not
-    # ported yet are refused in refuse_unported
     p.add_argument("-i", "--interactive", action="store_true",
-                   help="interactive chat (not ported yet)")
+                   help="interactive chat: generation pauses at reverse "
+                   "prompts / EOS / ctrl-C and reads user input "
+                   "(ref: main.cpp interactive mode)")
     p.add_argument("--interactive-first", action="store_true",
-                   help="interactive mode, waiting for input immediately (not ported yet)")
+                   help="interactive mode, waiting for input immediately")
     p.add_argument("-r", "--reverse-prompt", action="append", default=[],
-                   help="stop when this string is generated (repeatable; ref: main -r "
-                   "antiprompt)")
+                   help="return control to the user when this string is "
+                   "generated (repeatable; ref: main -r antiprompt)")
     p.add_argument("--instruct", action="store_true",
-                   help="Alpaca instruction mode (not ported yet)")
-    p.add_argument("--chatml", action="store_true", help="ChatML mode (not ported yet)")
-    # read only by the interactive loop: accepted for command-line
-    # compatibility, with no effect until that loop is ported
-    compat = "interactive only; accepted for command-line compatibility, no effect"
-    p.add_argument("--in-prefix", default="", help=f"string prepended to user input ({compat})")
-    p.add_argument("--in-suffix", default="", help=f"string appended to user input ({compat})")
+                   help="Alpaca instruction mode: wraps each input in "
+                   "'### Instruction/### Response' (ref: main --instruct)")
+    p.add_argument("--chatml", action="store_true",
+                   help="ChatML mode: wraps each input in <|im_start|> "
+                   "chat markers (ref: main --chatml)")
+    p.add_argument("--in-prefix", default="",
+                   help="string prepended to each user input (interactive)")
+    p.add_argument("--in-suffix", default="",
+                   help="string appended to each user input (interactive)")
     p.add_argument("--in-prefix-bos", dest="input_prefix_bos", action="store_true",
-                   help=f"prefix user input with BOS ({compat})")
-    p.add_argument("--color", action="store_true", help=f"colorize user input ({compat})")
-    p.add_argument("--fim-prefix", default=None, help="fill-in-middle prefix (not ported yet)")
-    p.add_argument("--fim-suffix", default=None, help="fill-in-middle suffix (not ported yet)")
+                   help="prefix each user input with BOS")
+    p.add_argument("--color", action="store_true",
+                   help="colorize user input (interactive)")
+    p.add_argument("--fim-prefix", default=None,
+                   help="fill-in-middle: code before the cursor "
+                   "(see also cli.infill; ref: examples/infill)")
+    p.add_argument("--fim-suffix", default=None,
+                   help="fill-in-middle: code after the cursor")
     p.add_argument("--prompt-cache", default="",
                    help="session file: reuse its matching prompt prefix, save the run to it")
     p.add_argument("--lora", action="append", default=[], metavar="GGUF",
@@ -186,11 +372,14 @@ def main(argv=None):
     p.add_argument("--keep", type=int, default=-1,
                    help="tokens to keep when the context window slides "
                    "(-1 = whole prompt; ref: main --keep)")
-    p.add_argument("--logdir", default="", help="YAML run dump directory (not ported yet)")
+    p.add_argument("--logdir", default="",
+                   help="write a YAML run dump to this directory "
+                   "(ref: main --logdir dump_non_result_info_yaml)")
     p.add_argument("--profile", default="", metavar="DIR",
-                   help="trace the run to DIR (not ported yet)")
+                   help="trace the run with torch.profiler (CPU and CUDA activity) into "
+                   "DIR, viewable in TensorBoard/Perfetto (the GGML_PERF counterpart, "
+                   "ref: llama.cpp:5720-5724)")
     args = p.parse_args(argv)
-    refuse_unported(args)
 
     lora = [(f, 1.0) for f in args.lora] + [(f, float(s)) for f, s in args.lora_scaled]
     ctx, tok = build_context(args.model, args.ctx_size, args.cache_dtype, device=args.device,
@@ -203,11 +392,27 @@ def main(argv=None):
         text = args.grammar or open(args.grammar_file).read()
         sampler.grammar = grammar_state_from_gbnf(text, tok)
 
-    ids = tok.encode(read_prompt(args), add_bos=True)
+    prompt = read_prompt(args)
+    if args.fim_prefix is not None or args.fim_suffix is not None:
+        v = tok.vocab
+        if v.fim_pre < 0 or v.fim_suf < 0 or v.fim_mid < 0:
+            raise SystemExit("error: this model's vocab has no fill-in-middle tokens")
+        ids = (
+            [v.bos_id, v.fim_pre]
+            + tok.encode(args.fim_prefix or "", add_bos=False)
+            + [v.fim_suf]
+            + tok.encode(args.fim_suffix or "", add_bos=False)
+            + [v.fim_mid]
+        )
+    else:
+        ids = tok.encode(prompt, add_bos=True)
     if not ids:
         ids = [tok.vocab.bos_id]
-    for t in ids:
-        sampler.accept(t, apply_grammar=False)
+    interactive = (args.interactive or args.interactive_first or args.instruct
+                   or args.chatml)
+    if not interactive:
+        for t in ids:
+            sampler.accept(t, apply_grammar=False)
     if not args.no_display_prompt:
         sys.stdout.write(tok.decode(ids))
         sys.stdout.flush()
@@ -231,15 +436,34 @@ def main(argv=None):
         )
 
     cached_prefix = load_prompt_cache(ctx, args.prompt_cache, ids) if args.prompt_cache else 0
-    out = generate(
-        ctx, tok, sampler, ids, args.n_predict,
-        ignore_eos=args.ignore_eos, stream=stream, cached_prefix=cached_prefix,
-        n_keep=args.keep, stop_check=hit_reverse_prompt if args.reverse_prompt else None,
-    )
+    prof = contextlib.nullcontext()
+    if args.profile:
+        prof = profile_to(args.profile, ctx.device)
+    with prof:
+        if interactive:
+            if args.prompt_cache and cached_prefix:
+                print("note: --prompt-cache prefix reuse is ignored in "
+                      "interactive mode", file=sys.stderr)
+                ctx.clear_cache()
+            out = interactive_loop(ctx, tok, sampler, ids, args)
+        else:
+            out = generate(
+                ctx, tok, sampler, ids, args.n_predict,
+                ignore_eos=args.ignore_eos, stream=stream, cached_prefix=cached_prefix,
+                n_keep=args.keep, stop_check=hit_reverse_prompt if args.reverse_prompt else None,
+            )
+    if args.profile:
+        print(f"profile trace -> {args.profile}", file=sys.stderr)
     if args.prompt_cache:
         rstate.save_state(ctx, args.prompt_cache, tokens=ids + out)
     sys.stdout.write("\n")
     ctx.print_timings(lambda s: print(s, file=sys.stderr))
+    if args.logdir:
+        from ..utils.rundump import dump_run_yaml
+
+        path = dump_run_yaml(args.logdir, args=vars(args), prompt_ids=ids,
+                             output_ids=out, output_text=tok.decode(out), ctx=ctx)
+        print(f"run dump: {path}", file=sys.stderr)
     return 0
 
 

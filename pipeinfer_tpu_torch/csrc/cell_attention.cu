@@ -8,12 +8,16 @@
 // a row when the row's seq bit is set in the cell's bitmask word, the cell's
 // position is >= 0 and <= the token's position, and the row is valid. The
 // score is q.k * scale, plus 0 (visible) or -1e9 (masked) — an additive
-// finite mask, not -inf, so fully masked and padded rows give finite values
-// exactly as the reference does — plus slope * max(pos, 0) under ALiBi, each
-// step rounded on its own (__fmul_rn / __fadd_rn) as the reference rounds
-// it. The softmax runs online (max, sum and accumulator in f32, every max
-// starting at -1e9), and the output divides by the sum with the
-// l == 0 -> 1 guard.
+// finite mask, not -inf, so a valid row that sees no cell gives finite
+// values exactly as the reference does — plus slope * max(pos, 0) under
+// ALiBi, each step rounded on its own (__fmul_rn / __fadd_rn) as the
+// reference rounds it. A padding row (valid 0) scores every cell -inf, so
+// its sum stays 0 and the l == 0 -> 1 guard writes 0: unlike the reference,
+// whose padding rows average the stale V of every cell, a step's valid rows
+// then never see through the activation scale that all rows of an i4g or
+// i8g product share what earlier requests left in the cache. The softmax
+// runs online (max, sum and accumulator in f32, every max starting at
+// -1e9), and the output divides by the sum with the l == 0 -> 1 guard.
 //
 // What bounds it on the H100: bytes. At decode T each K and V element
 // (2 B each in a bf16 cache) feeds T * G rows, at most 16 f32 operations per byte at the
@@ -262,10 +266,10 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(RT)) split_kernel(const
     for (int o = LPP / 2; o > 0; o /= 2) d += __shfl_xor_sync(FULL, d, o);
 
     const int c = cb + grp * U + my_u;
-    float s = -INFINITY;  // past the split's end: weighs exactly 0
-    if (c < c1) {
+    float s = -INFINITY;  // past the split's end, or a padding row: weighs exactly 0
+    if (c < c1 && my_ok) {
       const int cp = cur.pos;
-      const bool vis = ((cur.word >> (uint32_t)my_bit) & 1u) && cp <= my_pos && cp >= 0 && my_ok;
+      const bool vis = ((cur.word >> (uint32_t)my_bit) & 1u) && cp <= my_pos && cp >= 0;
       s = __fadd_rn(__fmul_rn(d, a.scale), vis ? 0.f : NEG);
       s = __fadd_rn(s, __fmul_rn(my_slope, (float)max(cp, 0)));
     }

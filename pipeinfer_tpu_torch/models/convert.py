@@ -63,3 +63,18 @@ def params_from_numpy(np_params: dict[str, Any], cfg: ModelConfig, device=None) 
     out = {k: conv(v) for k, v in np_params.items() if k != "layers"}
     out["layers"] = [{k: conv(v) for k, v in lp.items()} for lp in np_params["layers"]]
     return out
+
+
+def clip_params_from_numpy(np_params: dict[str, Any], device=None) -> dict[str, Any]:
+    """The port's CLIP tower + projector params (models/clip.py) from the
+    JAX package's (``pipeinfer_tpu.models.clip.load_mmproj``'s dict of
+    numpy arrays, with its per-block dicts under "layers"): the same keys,
+    each array an f32 tensor on `device`."""
+    device = resolve(device)
+
+    def conv(x):
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
+
+    out = {k: conv(v) for k, v in np_params.items() if k != "layers"}
+    out["layers"] = [{k: conv(v) for k, v in lp.items()} for lp in np_params["layers"]]
+    return out

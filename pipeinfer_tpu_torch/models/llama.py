@@ -68,10 +68,12 @@ def forward(
     valid: torch.Tensor,  # bool [T] false for padding
     seq_bits: torch.Tensor | None = None,  # int32 [T, SEQ_WORDS] membership
     output_hidden: bool = False,  # return normed hidden states, not logits
+    embd: torch.Tensor | None = None,  # f32 [T, E]: direct embedding input
+    # (the llama_batch.embd path, ref llama.h: multimodal image tokens)
 ) -> tuple[torch.Tensor, kv.KVCache]:
     """One decode/prefill step. Returns (logits [T, n_vocab] f32, cache)."""
     t = tokens.shape[0]
-    h = embed(tokens, params["tok_embd"])
+    h = embed(tokens, params["tok_embd"]) if embd is None else embd.float()
 
     # claim cells + mask once for all layers
     kv.write_meta(cache, cell_idx, pos, seq, valid, seq_bits)

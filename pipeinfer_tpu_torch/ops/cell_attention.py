@@ -92,9 +92,10 @@ def supports(d: int, c: int, h: int, kvh: int) -> bool:
 
 def _cell_attention_plain(q, k_cache, v_cache, cell_pos, cell_seq, tok_pos, tok_seq, valid,
                           layer, scale, alibi, c):
-    """Plain version of the kernel: the same masked scores, the softmax with
-    its max floored at NEG (the online softmax starts there) and the
-    l == 0 -> 1 guard."""
+    """Plain version of the kernel: the same masked scores, -inf for every
+    cell of a padding row, the softmax with its max floored at NEG (the
+    online softmax starts there) and the l == 0 -> 1 guard, which gives a
+    padding row 0."""
     t, h, d = q.shape
     kvh = k_cache.shape[1]
     g = h // kvh
@@ -105,12 +106,12 @@ def _cell_attention_plain(q, k_cache, v_cache, cell_pos, cell_seq, tok_pos, tok_
     tok_seq = tok_seq.long()
     words = cell_seq[:c].long()[:, tok_seq // 32].T  # [T, c]
     bit = (words >> (tok_seq % 32)[:, None]) & 1
-    visible = ((bit != 0) & (pos[None, :] <= tok_pos.long()[:, None]) & (pos[None, :] >= 0)
-               & valid.bool()[:, None])
+    visible = (bit != 0) & (pos[None, :] <= tok_pos.long()[:, None]) & (pos[None, :] >= 0)
     s = s + torch.where(visible, 0.0, NEG)[:, None, None, :]
     if alibi is not None:
         slope = alibi.float().reshape(kvh, g)
         s = s + slope[None, :, :, None] * pos.clamp_min(0).float()[None, None, None, :]
+    s = s.masked_fill(~valid.bool()[:, None, None, None], float("-inf"))
     m = s.amax(dim=-1, keepdim=True).clamp_min(NEG)
     p = torch.exp(s - m)
     l_sum = p.sum(dim=-1, keepdim=True)

@@ -470,7 +470,9 @@ def _split_scratch_for(device: torch.device, n_part: int) -> torch.Tensor:
 
 
 def _i4g_plain(xq, xsum, sx, qs, step, wmin):
-    """Plain version of the i4g kernel (same arithmetic, slab by slab)."""
+    """Plain version of the i4g kernel (same arithmetic, slab by slab:
+    one product per half-slab, so [nhalf, M, N] is never held at once, 11
+    GB at M = 2048 over a 7B FFN)."""
     m, kp = xq.shape
     n = qs.shape[1]
     nslab = kp // I4G_SLAB
@@ -478,11 +480,10 @@ def _i4g_plain(xq, xsum, sx, qs, step, wmin):
     u = torch.stack([v & 15, v >> 4], dim=1).reshape(2 * nslab, I4G_HALF, n).float()
     xh = xq.float().reshape(m, 2 * nslab, I4G_HALF).transpose(0, 1)  # [nhalf, M, 128]
     # integer dots are exact in f32: |sum| <= 128 * 127 * 15 < 2^24
-    p = torch.bmm(xh, u)  # [nhalf, M, N]
     se = step * sx[:, None]
     acc = torch.zeros(m, n, dtype=torch.float32, device=xq.device)
     for g in range(2 * nslab):
-        acc = acc + p[g] * se[g]
+        acc = acc + (xh[g] @ u[g]) * se[g]
     return acc + xsum @ (wmin * sx[:, None])
 
 
@@ -570,17 +571,18 @@ def i8g_plan(m: int, n: int, kp: int, sms: int) -> I8gPlan:
 
 
 def _i8g_plain(xq, sx, qs, sw):
-    """Plain version of the i8g kernel (same arithmetic, slab by slab)."""
+    """Plain version of the i8g kernel (same arithmetic, slab by slab:
+    one product per slab, as in _i4g_plain)."""
     m, kp = xq.shape
     n = qs.shape[1]
     nslab = kp // I8G_SLAB
     xs = xq.float().reshape(m, nslab, I8G_SLAB).transpose(0, 1)  # [nslab, M, 512]
+    w = qs.float().reshape(nslab, I8G_SLAB, n)
     # integer dots are exact in f32: |sum| <= 512 * 127 * 127 < 2^24
-    p = torch.bmm(xs, qs.float().reshape(nslab, I8G_SLAB, n))
     se = sw * sx[:, None]
     acc = torch.zeros(m, n, dtype=torch.float32, device=xq.device)
     for s in range(nslab):
-        acc = acc + p[s] * se[s]
+        acc = acc + (xs[s] @ w[s]) * se[s]
     return acc
 
 

@@ -476,6 +476,35 @@ class InferenceContext(CellContext):
     def _dispatch(self, arrays: tuple, topk: int | None) -> torch.Tensor:
         return self._step(*(h2d(a, self.device) for a in arrays), topk)
 
+    # -- embedding input (the llama_batch.embd path: multimodal tokens) ----
+
+    def decode_embd(self, embd, pos0: int, seq_id: int = 0) -> np.ndarray:
+        """Feed pre-computed embeddings [T, E] (numpy or a tensor on any
+        device) at positions pos0..pos0+T-1 (ref: llava_eval_image_embed
+        llava.cpp:70-90: image patches enter the pipeline as embeddings, no
+        token ids). Pads to the step's bucket as the JAX package does, fills
+        KV cells and returns the final row's logits (np [n_vocab])."""
+        t = embd.shape[0]
+        t_pad = _bucket(t)
+        cells = self.find_cells(t)
+        x = torch.zeros((t_pad, embd.shape[1]), dtype=torch.float32, device=self.device)
+        x[:t] = torch.as_tensor(embd, dtype=torch.float32).to(self.device)
+        pos = np.zeros(t_pad, np.int32)
+        pos[:t] = pos0 + np.arange(t)
+        seq = np.full(t_pad, seq_id, np.int32)
+        cell_idx = np.full(t_pad, self.trash_cell, np.int32)
+        cell_idx[:t] = cells
+        valid = np.zeros(t_pad, bool)
+        valid[:t] = True
+        self.h_pos[cells] = pos[:t]
+        self.h_seq[cells] = kv.host_only(seq_id)
+        self._refresh_hot()
+        tokens, pos, seq, cell_idx, valid = (h2d(a, self.device) for a in (
+            np.zeros(t_pad, np.int32), pos, seq, cell_idx, valid))
+        logits, _ = self._forward(self.params, self.cfg, self.cache, tokens, pos, seq, cell_idx,
+                                  valid, embd=x)
+        return logits[t - 1].cpu().numpy()
+
     # -- on-device draft chain ---------------------------------------------
     def draft_chain(self, root_token, pos0: int, seq_id: int, depth: int,
                     n_cand: int = 8, fetch: bool = True,

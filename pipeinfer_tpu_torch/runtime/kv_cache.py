@@ -301,7 +301,11 @@ def attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
               cache_pos: torch.Tensor | None = None) -> torch.Tensor:
     """Dense masked SDPA over a [KVH, C, D] cell array (GQA-aware), with
     optional ALiBi bias slope * max(cell_pos, 0). Plain torch, as the JAX
-    package leaves this path to XLA."""
+    package leaves this path to XLA. A row whose mask sees no cell (a
+    padding row) gives 0, as the cell kernel gives it: the JAX package's
+    softmax spreads it over the pool, stale K/V of freed cells included,
+    and under i4g and i8g its values would reach the valid rows through
+    the activation scale all rows of a product share."""
     t, h, d = q.shape
     kvh = k_cache.shape[0]
     g = h // kvh
@@ -313,7 +317,9 @@ def attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
             cache_pos.clamp_min(0).float()[None, None, None, :])
         scores = scores + bias
     p = torch.softmax(scores, dim=-1)
-    return torch.einsum("tkgc,kcd->tkgd", p, v_cache.float()).reshape(t, h, d)
+    out = torch.einsum("tkgc,kcd->tkgd", p, v_cache.float()).reshape(t, h, d)
+    seen = (mask > MASK_VALUE / 2).any(dim=-1)
+    return torch.where(seen[:, None, None], out, 0.0)
 
 
 # Flash-vs-dense dispatch thresholds, kept as the reference set them (they

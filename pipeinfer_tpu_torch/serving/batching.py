@@ -8,10 +8,9 @@ request (plus prompt chunks for newly admitted ones) into a single batch,
 so new requests hot-join while others are mid-generation.
 
 Torch counterpart of pipeinfer_tpu.serving.batching (which imports no
-JAX), over the port's contexts and engines. Image segments are not ported
-(they need models/clip.py and the context's embedding input): a request
-that carries embeddings fails with EMBEDDINGS_UNPORTED instead of being
-decoded as text only.
+JAX), over the port's contexts and engines. A request's image segments
+enter BatchScheduler's context through its embedding input
+(InferenceContext.decode_embd) at admission, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,12 +23,6 @@ from typing import Callable, Optional
 
 from ..runtime.context import Batch, InferenceContext
 from ..sampling.samplers import SamplerState, SamplingParams, sample, top_probs
-
-EMBEDDINGS_UNPORTED = (
-    "image embeddings are not ported to pipeinfer_tpu_torch yet: they need models/clip.py "
-    "and the context's embedding input (ROADMAP.md queue 1, \"The rest of the JAX "
-    "package's surface\")")
-
 
 @dataclasses.dataclass
 class Request:
@@ -80,10 +73,6 @@ class Request:
         self.done = True
         self.done_event.set()
 
-    @property
-    def has_embeddings(self) -> bool:
-        return self.segments is not None and any(kind != "tok" for kind, _ in self.segments)
-
 
 class BatchScheduler:
     """Slot-based continuous batching over one InferenceContext."""
@@ -126,9 +115,6 @@ class BatchScheduler:
         usable = self.ctx.n_cells - 1  # trash cell reserved
         for i in range(self.max_slots):
             if self.slots[i] is None and self.queue:
-                if self.queue[0].has_embeddings:
-                    self.queue.pop(0).fail(EMBEDDINGS_UNPORTED)
-                    continue
                 need = self.queue[0].cells_needed()
                 if need > usable:
                     self.queue.pop(0).fail(
@@ -151,24 +137,30 @@ class BatchScheduler:
                         req.sampler.accept(t, apply_grammar=False)
 
     def _prefill_segments(self, req: Request):
-        """Segmented prefill, all at admission: each token segment through
-        decode (admission has failed requests with image segments)."""
-        if not req.segments:
-            raise ValueError("empty segmented prompt")
+        """Multimodal prefill: token segments via decode, image segments
+        via the embedding input path, all at admission (the reference
+        server likewise evaluates a slot's images before joining the
+        batch loop, server.cpp:1316-1360)."""
+        if not req.segments or req.segments[-1][0] != "tok":
+            raise ValueError("prompt must end with text after the last image")
         pos = 0
         logits = None
         last = len(req.segments) - 1
-        for si, (_, payload) in enumerate(req.segments):
-            b = Batch()
-            for j, t in enumerate(payload):
-                req.sampler.accept(t, apply_grammar=False)
-                b.add(t, pos + j, req.seq,
-                      want_logits=(si == last and j == len(payload) - 1))
-            topk = None if (req.grammar is not None
-                            or req.sampling.mirostat != 0) else self.topk
-            out = self.ctx.decode(b, topk)
-            logits = out[-1]
-            pos += len(payload)
+        for si, (kind, payload) in enumerate(req.segments):
+            if kind == "tok":
+                b = Batch()
+                for j, t in enumerate(payload):
+                    req.sampler.accept(t, apply_grammar=False)
+                    b.add(t, pos + j, req.seq,
+                          want_logits=(si == last and j == len(payload) - 1))
+                topk = None if (req.grammar is not None
+                                or req.sampling.mirostat != 0) else self.topk
+                out = self.ctx.decode(b, topk)
+                logits = out[-1]
+                pos += len(payload)
+            else:  # "img": [T, n_embd] embeddings
+                self.ctx.decode_embd(payload, pos, req.seq)
+                pos += payload.shape[0]
         req.n_past = pos
         req.n_prompt_fed = len(req.prompt_ids)  # nothing left to feed
         # sample the first token now so step() continues from generated[-1]
@@ -411,9 +403,6 @@ class SpecBatchScheduler:
                     _r.stream(t)
 
             req.rid = next(self._rid)
-            if req.has_embeddings:
-                req.fail(EMBEDDINGS_UNPORTED)
-                continue
             if self._route_device(req):
                 h = self.devsrv.submit(
                     req.prompt_ids,

@@ -4,10 +4,8 @@ OpenAI-style /v1/completions, /health and /props, on top of the
 continuous-batching scheduler. Stdlib http.server; an engine thread runs
 the scheduler loop while handler threads enqueue requests.
 
-Port of pipeinfer_tpu.serving.server; the models run on --device (cuda
-unless asked otherwise). Image input (--mmproj, a request's image_data)
-needs models/clip.py, which is not ported yet: --mmproj exits and
-image_data answers 400, each naming the ROADMAP.md item.
+Port of pipeinfer_tpu.serving.server; the models (and, with --mmproj, the
+CLIP tower and projector) run on --device (cuda unless asked otherwise).
 """
 
 from __future__ import annotations
@@ -24,14 +22,12 @@ from ..cli.main import build_context
 from ..sampling.samplers import SamplingParams
 from .batching import BatchScheduler, Request
 
-CLIP_UNPORTED = ("image input needs models/clip.py, not ported to pipeinfer_tpu_torch yet "
-                 "(ROADMAP.md queue 1, \"The rest of the JAX package's surface\")")
-
 
 class EngineState:
-    def __init__(self, scheduler: BatchScheduler, tok):
+    def __init__(self, scheduler: BatchScheduler, tok, clip=None):
         self.scheduler = scheduler
         self.tok = tok
+        self.clip = clip  # (params, ClipConfig) when serving multimodal
         self.stop = threading.Event()
         self.thread = threading.Thread(target=scheduler.serve_forever, args=(self.stop,), daemon=True)
 
@@ -72,7 +68,7 @@ def _sampling_from_body(body: dict) -> SamplingParams:
     )
 
 
-def _request_from_body(body: dict, tok, ids) -> Request:
+def _request_from_body(body: dict, tok, ids, segments) -> Request:
     """Build the serving Request: sampler params + grammar + n_probs +
     ignore_eos (server.cpp:721-760 request schema)."""
     grammar = None
@@ -87,6 +83,7 @@ def _request_from_body(body: dict, tok, ids) -> Request:
         grammar=grammar,
         n_probs=int(body.get("n_probs", 0)),
         ignore_eos=bool(body.get("ignore_eos", False)),
+        segments=segments,
     )
 
 
@@ -157,18 +154,57 @@ def make_handler(engine: EngineState):
             else:
                 self._json(404, {"error": "not found"})
 
+        def _segments_from_images(self, prompt: str, image_data: list):
+            """Split the prompt on [img-ID] placeholders and CLIP-encode
+            each image (ref: server.cpp slot_image handling + the
+            image_data request field)."""
+            import base64
+            import re
+
+            from ..models import clip as clip_mod
+
+            cparams, ccfg = engine.clip
+            embeds = {}
+            for item in image_data:
+                img = clip_mod.open_image(base64.b64decode(item["data"]))
+                pixels = clip_mod.preprocess_image(img, ccfg)
+                embeds[int(item.get("id", 0))] = clip_mod.encode_image(cparams, ccfg, pixels)
+            segments = []
+            pos = 0
+            first = True
+            for m in re.finditer(r"\[img-(\d+)\]", prompt):
+                txt = prompt[pos: m.start()]
+                if txt or first:
+                    segments.append(("tok", tok.encode(txt, add_bos=first)))
+                    first = False
+                img_id = int(m.group(1))
+                if img_id not in embeds:
+                    raise ValueError(f"no image_data with id {img_id}")
+                segments.append(("img", embeds[img_id]))
+                pos = m.end()
+            tail = prompt[pos:]
+            segments.append(("tok", tok.encode(tail, add_bos=first)))
+            return segments
+
         def _completion(self, body: dict, openai: bool):
             prompt = body.get("prompt", "")
             if not isinstance(prompt, str):
                 self._json(400, {"error": "prompt must be a string"})
                 return
             stream = bool(body.get("stream", False))
+            segments = None
             if body.get("image_data"):
-                self._json(400, {"error": CLIP_UNPORTED})
-                return
+                if engine.clip is None:
+                    self._json(400, {"error": "server started without --mmproj"})
+                    return
+                try:
+                    segments = self._segments_from_images(prompt, body["image_data"])
+                except (ValueError, KeyError, OSError) as e:
+                    self._json(400, {"error": f"bad image_data: {e}"})
+                    return
             ids = tok.encode(prompt, add_bos=True)
             try:
-                req = _request_from_body(body, tok, ids)
+                req = _request_from_body(body, tok, ids, segments)
             except Exception as e:  # bad GBNF etc.
                 self._json(400, {"error": f"bad request: {e}"})
                 return
@@ -316,9 +352,19 @@ def serve(
     thread, and return (httpd, engine); the caller runs
     httpd.serve_forever() and, at the end, httpd.shutdown() and
     engine.shutdown()."""
-    if mmproj_path:
-        raise SystemExit(f"error: --mmproj: {CLIP_UNPORTED}")
     ctx, tok = build_context(model_path, n_cells, device=device)
+    clip = None
+    if mmproj_path:
+        from ..models import clip as clip_mod
+
+        clip = clip_mod.load_mmproj(mmproj_path, device=device)
+        if clip[0]["mm2_w"].shape[0] != ctx.cfg.n_embd:
+            raise SystemExit(
+                f"error: projector width {clip[0]['mm2_w'].shape[0]} != model "
+                f"embedding {ctx.cfg.n_embd} — wrong --mmproj for this model?"
+            )
+        if draft_path:
+            raise SystemExit("error: --mmproj and --draft cannot be combined yet")
     if draft_path:
         from .batching import SpecBatchScheduler
 
@@ -329,7 +375,7 @@ def serve(
         )
     else:
         sched = BatchScheduler(ctx, max_slots=max_slots, eos_id=tok.vocab.eos_id)
-    engine = EngineState(sched, tok)
+    engine = EngineState(sched, tok, clip=clip)
     engine.start()
     httpd = ThreadingHTTPServer((host, port), make_handler(engine))
     return httpd, engine
@@ -342,7 +388,8 @@ def main(argv=None):
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--slots", type=int, default=8)
     p.add_argument("--mmproj", default=None, metavar="GGUF",
-                   help="CLIP+projector GGUF (not ported yet: exits)")
+                   help="CLIP+projector GGUF: accept image_data in requests "
+                   "(LLaVA serving, [img-N] prompt placeholders)")
     p.add_argument("--draft", default=None, metavar="GGUF",
                    help="draft model: serve with asynchronous speculation "
                    "(each slot becomes a PipeInfer stream)")

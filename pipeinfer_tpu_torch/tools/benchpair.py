@@ -93,3 +93,19 @@ def cut_depth(src: str | Path, dst: str | Path, n_layers: int, log=print) -> Pat
     dst.with_suffix(".tmp").replace(dst)
     log(f"cut {Path(src).name} to {n_layers} layers in {time.perf_counter() - t0:.1f} s")
     return dst
+
+
+def cached_mmproj(cache_dir: str | Path, scale: str = "vit_l14_336", seed: int = 0,
+                  log=print) -> Path:
+    """The mmproj GGUF of testmodel.build_mmproj(scale, seed) under
+    cache_dir (about 1.3 GB in f32 at vit_l14_336), built only when
+    missing."""
+    path = Path(cache_dir) / f"mmproj_{scale}_seed{seed}.gguf"
+    if not path.exists():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        tmp = path.with_suffix(".tmp")
+        testmodel.build_mmproj(tmp, scale, seed)
+        tmp.replace(path)
+        log(f"built the {scale} mmproj in {time.perf_counter() - t0:.1f} s")
+    return path

@@ -39,7 +39,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..models import llama
+from ..models import clip, llama
 from ..models import train
 from ..runtime import kv_cache as kv
 from ..runtime.context import Batch, InferenceContext
@@ -226,6 +226,77 @@ def train_fault(name: str):
         yield
     finally:
         setattr(train, attr, real)
+
+
+# The image tower's check in chip_smoke.py (llava phase: the CLIP ViT-L/14-336
+# tower and LLaVA-1.5 projector of testmodel.build_mmproj, f32, TF32 off):
+# max|embedding card - CPU| over max|embedding CPU|. Its floor is one other
+# f32 order (clip_other_order: every product summed over K in two halves),
+# and each of CLIP_FAULTS must land past it. On an H100 80GB HBM3 at 700 W
+# the card against the CPU spread 1.4e-6 (a square and a non-square image),
+# the other order on the card 1.3e-6, and the faults 0.25 (last block
+# kept), 0.61 (class row kept) and 9.8e-3 (tanh GELU for quick GELU)
+# (PERF.md): the bar sits about 80x from the spread and 100x from the
+# weakest fault
+CLIP_RTOL = 1e-4
+# decode_embd against the token path in a padded bucket, where the token
+# path's padding rows hold token 0's row and decode_embd's zeros: under i4g
+# every row of a product shares the activation scales, so the valid rows'
+# logits part, by a share of i4g's own rounding (the i4g token path's
+# distance from the exact k_major layout on the same rows). The bar on that
+# share: tests/test_torch_llava.py::test_padded_token_path_within_a_share_of_i4g_rounding
+# measures it on the CPU (at most 0.093 over three draws of a 256-wide Q4_K
+# llama, i4g's rounding 0.30-0.57 of max|logit|) and chip_smoke.py's llava
+# phase at 7B width on the card (PERF.md): the bar sits 2.7x over the CPU's
+PAD_SHARE = 0.25
+
+
+def _split_k_mm(real):
+    def mm(x, w):
+        k = x.shape[-1] // 2
+        return x[..., :k] @ w[:, :k].T + x[..., k:] @ w[:, k:].T
+
+    return mm
+
+
+def _last_block_kept(real):
+    return lambda cfg: cfg.n_layers
+
+
+def _class_row_kept(real):
+    return lambda x: x[:-1]  # the class row in place of the last patch
+
+
+def _tanh_gelu(real):
+    return lambda x, cfg: torch.nn.functional.gelu(x, approximate="tanh")
+
+
+CLIP_FAULTS = {  # name -> (models.clip function, (the real one) -> its faulty form)
+    "last block kept": ("_n_blocks", _last_block_kept),
+    "class row kept": ("_drop_class", _class_row_kept),
+    "tanh GELU for quick GELU": ("_act", _tanh_gelu),
+}
+
+
+@contextlib.contextmanager
+def _clip_replaced(attr, make):
+    real = getattr(clip, attr)
+    setattr(clip, attr, make(real))
+    try:
+        yield
+    finally:
+        setattr(clip, attr, real)
+
+
+def clip_fault(name: str):
+    """Within: encode_image runs with CLIP_FAULTS[name]."""
+    return _clip_replaced(*CLIP_FAULTS[name])
+
+
+def clip_other_order():
+    """Within: every matmul of encode_image sums its K in two halves, one
+    other order of the f32 sums."""
+    return _clip_replaced("_mm", _split_k_mm)
 
 
 def live_tokens(n_vocab: int, seed: int) -> list[int]:

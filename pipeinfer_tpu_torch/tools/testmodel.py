@@ -199,6 +199,40 @@ def synthetic_spm_vocab(n_vocab: int, seed: int = 0) -> dict:
     }
 
 
+FIM_PIECES = ("▁<PRE>", "▁<SUF>", "▁<MID>")  # CodeLlama's fill-in-middle specials
+
+
+def with_fim_ids(src: str | Path, dst: str | Path) -> Path:
+    """A copy of the GGUF model `src` (tensors byte for byte) whose
+    vocabulary's last three tokens are the fill-in-middle specials
+    FIM_PIECES, as control tokens, with the prefix, suffix and middle ids
+    in its metadata: the vocabulary infill (cli.main --fim-prefix /
+    --fim-suffix, cli.infill) needs. Written to dst; returns dst."""
+    from ..gguf.reader import GGUFReader
+    from ..tokenizer.vocab import TokenType
+
+    with GGUFReader(src) as r:
+        meta = {k: v for k, v in r.metadata.items() if k not in (Keys.ARCHITECTURE, Keys.ALIGNMENT)}
+        tokens = list(meta[Keys.TOKENIZER_LIST])
+        types = np.array(meta[Keys.TOKENIZER_TOKEN_TYPE], np.int32)
+        ids = range(len(tokens) - 3, len(tokens))
+        for i, piece in zip(ids, FIM_PIECES):
+            tokens[i] = piece
+            types[i] = TokenType.CONTROL
+        meta[Keys.TOKENIZER_LIST] = tokens
+        meta[Keys.TOKENIZER_TOKEN_TYPE] = types
+        for key, i in zip((Keys.TOKENIZER_FIM_PRE, Keys.TOKENIZER_FIM_SUF,
+                           Keys.TOKENIZER_FIM_MID), ids):
+            meta[key] = i
+        w = GGUFWriter(Path(dst), r.architecture)
+        for key, val in meta.items():
+            w.add_kv(key, val)
+        for name, info in r.tensors.items():
+            w.add_tensor(name, bytes(r.tensor_bytes(name)), shape=info.shape, qtype=info.qtype)
+        w.write()
+    return Path(dst)
+
+
 def build_bench_pair(
     tgt_path: str | Path,
     dft_path: str | Path,
@@ -697,3 +731,85 @@ def build_mpt_bench_pair(tgt_path: str | Path, dft_path: str | Path, *, scale: s
     log(f"built the {scale} pair in {_t.time() - t0:.1f}s (eps={eps}, {n}L target / {dl}L draft"
         + (f", {MPT_LIVE_LAYERS}L live model)" if live_path is not None else ")"))
     return Path(tgt_path), Path(dft_path)
+
+
+# ---------------------------------------------------------------------------
+# the CLIP tower + LLaVA projector (models/clip.py)
+# ---------------------------------------------------------------------------
+
+CLIP_SCALES = {
+    # openai/clip-vit-large-patch14-336 (LLaVA-1.5's tower: quick_gelu, 576
+    # patches) and LLaVA-1.5-7B's projector to llama-2-7B's n_embd 4096
+    "vit_l14_336": dict(image_size=336, patch_size=14, hidden=1024, n_heads=16, n_ff=4096,
+                        n_layers=24, proj_dim=768, n_embd=4096),
+    # unit-test scale (the JAX package's tests/test_llava.py tower)
+    "nano": dict(image_size=32, patch_size=8, hidden=32, n_heads=4, n_ff=64, n_layers=3,
+                 proj_dim=32, n_embd=64),
+}
+
+
+def random_clip_weights(scale: str = "nano", seed: int = 0, *, n_embd: int | None = None,
+                        hidden_act: str = "quick_gelu"):
+    """(HF-like vision config, HF CLIPVisionModel state dict, projector
+    {mm0_w, mm0_b, mm2_w, mm2_b}) of a random CLIP tower and LLaVA
+    projector at CLIP_SCALES[scale], projecting to n_embd (default the
+    scale's), made from `seed`: convert_clip.write_mmproj's arguments.
+    Every projection is drawn at 1/sqrt(fan_in), so each block's attention
+    stays soft and the patches, not the learned positions, dominate the
+    output: different images give different embeddings. hidden_act "gelu"
+    makes the file say use_gelu (the tanh-approximate GELU) instead of
+    quick_gelu. Needs no transformers."""
+    import types
+
+    sc = dict(CLIP_SCALES[scale])
+    n_embd = n_embd or sc["n_embd"]
+    rng = np.random.default_rng(seed)
+    hid, ff, ps = sc["hidden"], sc["n_ff"], sc["patch_size"]
+    n_pos = (sc["image_size"] // ps) ** 2 + 1
+
+    def proj(n_out, fan_in):
+        return rng.standard_normal((n_out, fan_in), dtype=np.float32) / np.float32(fan_in ** 0.5)
+
+    def small(*shape, s=0.02):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(s)
+
+    def ln():
+        return 1 + small(hid), small(hid)
+
+    state = {
+        "embeddings.patch_embedding.weight": proj(hid, 3 * ps * ps).reshape(hid, 3, ps, ps),
+        "embeddings.class_embedding": small(hid, s=0.1),
+        "embeddings.position_embedding.weight": small(n_pos, hid, s=0.1),
+    }
+    state["pre_layrnorm.weight"], state["pre_layrnorm.bias"] = ln()
+    state["post_layernorm.weight"], state["post_layernorm.bias"] = ln()
+    for i in range(sc["n_layers"]):
+        pre = f"encoder.layers.{i}."
+        for name, (n_out, fan_in) in (("self_attn.q_proj", (hid, hid)),
+                                      ("self_attn.k_proj", (hid, hid)),
+                                      ("self_attn.v_proj", (hid, hid)),
+                                      ("self_attn.out_proj", (hid, hid)),
+                                      ("mlp.fc1", (ff, hid)), ("mlp.fc2", (hid, ff))):
+            state[pre + name + ".weight"] = proj(n_out, fan_in)
+            state[pre + name + ".bias"] = small(n_out)
+        for name in ("layer_norm1", "layer_norm2"):
+            state[pre + name + ".weight"], state[pre + name + ".bias"] = ln()
+    cfg = types.SimpleNamespace(
+        hidden_act=hidden_act, image_size=sc["image_size"], patch_size=ps, hidden_size=hid,
+        intermediate_size=ff, num_hidden_layers=sc["n_layers"],
+        num_attention_heads=sc["n_heads"], layer_norm_eps=1e-5, projection_dim=sc["proj_dim"])
+    mm = dict(mm0_w=proj(n_embd, hid), mm0_b=small(n_embd), mm2_w=proj(n_embd, n_embd),
+              mm2_b=small(n_embd))
+    return cfg, state, mm
+
+
+def build_mmproj(path: str | Path, scale: str = "nano", seed: int = 0, *,
+                 n_embd: int | None = None, hidden_act: str = "quick_gelu") -> Path:
+    """random_clip_weights(scale, seed, ...) written through
+    convert_clip.write_mmproj, as the converter writes a real checkpoint:
+    an mmproj GGUF for models/clip.load_mmproj."""
+    from .convert_clip import write_mmproj
+
+    cfg, state, mm = random_clip_weights(scale, seed, n_embd=n_embd, hidden_act=hidden_act)
+    write_mmproj(path, cfg=cfg, state=state, **mm)
+    return Path(path)

@@ -107,3 +107,26 @@ def test_masking_is_load_bearing(rng):
     a = _port(q, kc, vc, pos, seq, tok_pos, np.full(t, 127, np.int32), valid, None, 0)
     b = _port(q, kc, vc, pos, seq, tok_pos, np.zeros(t, np.int32), valid, None, 0)
     assert not np.allclose(a[valid], b[valid])
+
+
+@pytest.mark.parametrize("use_alibi", [False, True])
+def test_padding_rows_give_zero_on_both_paths(rng, use_alibi):
+    """A padding row sees no cell and comes out 0, in the flash kernel's
+    plain version and in the dense path (whose mask hides every cell from
+    it, as models/llama.forward builds it); the JAX package's softmax
+    spreads such a row over the pool instead, so only valid rows are held
+    against it."""
+    t, c = 4, 512
+    q, kc, vc, pos, seq, tok_pos, tok_seq, valid = _inputs(rng, t, c, 2, 0)
+    valid[1] = valid[3] = False
+    alibi = np.linspace(0.05, 0.4, H, dtype=np.float32) if use_alibi else None
+    cache = tkv.KVCache(k=torch.from_numpy(kc), v=torch.from_numpy(vc),
+                        pos=torch.from_numpy(pos), seq=torch.from_numpy(seq.view(np.int32)))
+    tp, ts, tv = torch.from_numpy(tok_pos), torch.from_numpy(tok_seq), torch.from_numpy(valid)
+    mask = torch.where(tv[:, None], tkv.attn_mask(cache, tp, ts), tkv.MASK_VALUE)
+    dense = tkv.attend(torch.from_numpy(q), cache, 1, mask, tp, ts, tv, scale=D ** -0.5,
+                       alibi=None if alibi is None else torch.from_numpy(alibi)).numpy()
+    flash = _port(q, kc, vc, pos, seq, tok_pos, tok_seq, valid, alibi, 0)
+    assert not dense[~valid].any() and not flash[~valid].any()
+    np.testing.assert_allclose(dense[valid], flash[valid], atol=ATOL, rtol=0)
+    assert np.abs(flash[valid]).max() > 0

@@ -9,7 +9,9 @@ mode and the port's plain version on the same numpy inputs, at the edges the
 split creates: a split that is all masked, one beyond every token's
 position, a hot bound with NaN past it, padded rows, a row that sees no
 cell, ALiBi over masked cells, seq ids in words 2 and 3, GQA with G = 4.
-f32, atol 1e-5 (summation order). The plan itself is checked at the shapes
+A padded row comes out 0 in the port, and the JAX kernel spreads it over
+the pool, so the JAX kernel is held to the valid rows only. f32, atol 1e-5
+(summation order). The plan itself is checked at the shapes
 chip_smoke.py times."""
 
 import numpy as np
@@ -36,12 +38,12 @@ def _emulate(q, kc, vc, pos, seq, tok_pos, tok_seq, valid, *, layer, scale, alib
     cpos = pos[:c].long()
     words = seq[:c].long()[:, tok_seq.long() // 32].T  # [T, c]
     bit = (words >> (tok_seq.long() % 32)[:, None]) & 1
-    vis = (bit != 0) & (cpos[None] <= tok_pos.long()[:, None]) & (cpos[None] >= 0) \
-        & valid[:, None]
+    vis = (bit != 0) & (cpos[None] <= tok_pos.long()[:, None]) & (cpos[None] >= 0)
     s = torch.einsum("tkgd,kcd->tkgc", q.reshape(t, kvh, g, d), k) * scale
     s = s + torch.where(vis, 0.0, tca.NEG)[:, None, None, :]
     if alibi is not None:
         s = s + alibi.reshape(kvh, g)[None, :, :, None] * cpos.clamp_min(0).float()
+    s = s.masked_fill(~valid[:, None, None, None], -torch.inf)  # a padding row weighs no cell
     ng = tca.THREADS // cut.group_lanes
     u = tca.CELLS_PER_STEP
     parts = []
@@ -166,7 +168,9 @@ def test_split_merge_matches_pallas_interpret_and_plain(rng, case):
                                       "valid")),
         layer=1, scale=scale, block_c=256, interpret=True, hot=x["hot"],
         alibi=None if alibi is None else jnp.asarray(x["alibi"])))
-    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    ok = x["valid"]
+    np.testing.assert_allclose(got[ok], want[ok], atol=ATOL, rtol=0)
+    assert not got[~ok].any()
 
 
 # (t, h, kvh, d, c): the shapes chip_smoke.py times, the toy and nano heads,

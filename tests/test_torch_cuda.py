@@ -373,6 +373,29 @@ def test_cell_attention_kernel_matches_plain(cuda, case):
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("t", [4, 9])
+def test_cell_attention_padding_rows_give_zero(cuda, t):
+    """A padding row (valid 0) weighs every cell 0 and comes out 0, in the
+    kernel as in its plain version, whatever the cells hold; the valid rows
+    match the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(t)
+    h, kvh, d, c = 8, 2, 64, 1024
+    kc = torch.randn(2, kvh, c, d, device=cuda, generator=g).to(torch.bfloat16)
+    vc = torch.randn(2, kvh, c, d, device=cuda, generator=g).to(torch.bfloat16)
+    pos = torch.arange(c, dtype=torch.int32, device=cuda)
+    seq = torch.zeros(c, 4, dtype=torch.int32, device=cuda)
+    seq[:, 0] = 1
+    q = torch.randn(t, h, d, device=cuda, generator=g)
+    tok_pos = torch.full((t,), 900, dtype=torch.int32, device=cuda)
+    tok_seq = torch.zeros(t, dtype=torch.int32, device=cuda)
+    valid = torch.arange(t, device=cuda) < t // 2
+    args = (q, kc, vc, pos, seq, tok_pos, tok_seq, valid)
+    got = CA.cell_attention(*args, layer=1, scale=d ** -0.5).cpu()
+    want = CA.cell_attention(*(a.cpu() for a in args), layer=1, scale=d ** -0.5)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    assert not got[~valid.cpu()].any() and got[valid.cpu()].abs().amax() > 0
+
+
 @pytest.mark.parametrize("t", [1, 4])
 def test_cell_attention_alibi_at_mpt_heads(cuda, t):
     """ALiBi fused in the kernel at MPT-7B's heads (H = KVH = 32, D = 128,
@@ -591,3 +614,79 @@ def test_nano_device_loops_on_card_match_cpu(cuda, tmp_path, monkeypatch):
         streams[dev] = (one, [h.tokens for h in hs])
     assert streams["cuda"] == streams["cpu"]
     assert streams["cpu"][0] == streams["cpu"][1][0]
+
+
+def test_clip_encode_and_decode_embd_on_card_match_cpu(cuda, tmp_path, monkeypatch):
+    """The nano CLIP tower and projector on the card against the CPU within
+    live_check.CLIP_RTOL; decode_embd of its embeddings into a Q4_K llama
+    (i4g on both devices) at T = 16 (bucket 32), then 4 single-token steps
+    over 1024 cells (the cell kernel): the card's logits against the CPU's
+    within live_check.LIVE_RTOL; on the card, decode_embd of 8 tok_embd rows
+    gives the token path's logits bit for bit, and of 40 (bucket 128, whose
+    padding rows the two paths fill apart) within live_check.PAD_SHARE of
+    i4g's rounding (the token path against k_major's)."""
+    from pipeinfer_tpu_torch.models import clip
+    from pipeinfer_tpu_torch.tools import live_check as LC
+
+    monkeypatch.setenv("PIPEINFER_WEIGHT_LAYOUT", "i4g")
+    mm = testmodel.build_mmproj(tmp_path / "mm.gguf", "nano", seed=1, n_embd=256)
+    lm = testmodel.build_tiny_llama(tmp_path / "lm.gguf", seed=2, n_layers=2, n_embd=256,
+                                    n_heads=4, n_kv_heads=2, n_ff=512, n_vocab=300,
+                                    qtype=GGMLQuantType.Q4_K)
+    img = np.random.default_rng(3).integers(0, 256, (40, 28, 3), np.uint8)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cparams, ccfg = clip.load_mmproj(mm, device=dev)
+        embd = clip.encode_image(cparams, ccfg, clip.preprocess_image(img, ccfg))
+        assert embd.device.type == dev and embd.shape == (16, 256)
+        if dev == "cuda":
+            params, cfg = load_model(lm, device=dev)
+        else:  # the card's planes, so only the compute differs
+            params = out["cuda"][2]
+        ctx = InferenceContext(params, cfg, n_cells=1024, cache_dtype=torch.float32, device=dev)
+        b = Batch()
+        for i, t in enumerate([1, 7, 12]):
+            b.add(t, i, 0)
+        ctx.decode(b)
+        launches = (Q.i4g_matmul.launches, CA.cell_attention.launches)
+        rows = [ctx.decode_embd(embd, 3)]
+        for j in range(4):
+            b = Batch()
+            b.add(int(np.argmax(rows[-1])), 19 + j, 0)
+            rows.append(ctx.decode(b)[0])
+        if dev == "cuda":
+            assert Q.i4g_matmul.launches > launches[0] and CA.cell_attention.launches > launches[1]
+            from pipeinfer_tpu_torch.runtime.context import _params_to
+
+            out[dev] = (embd.cpu(), np.stack(rows), _params_to(params, torch.device("cpu")))
+            # a whole bucket: the token path pads with token 0's row, decode_embd
+            # with zeros, and i4g's activation scale is shared by all rows
+            toks = [5, 9, 23, 7, 88, 41, 2, 150]
+            a, e = (InferenceContext(params, cfg, n_cells=1024, device=dev) for _ in range(2))
+            b = Batch()
+            for i, t in enumerate(toks):
+                b.add(t, i, 0, want_logits=(i == len(toks) - 1))
+            want = a.decode(b)[-1]
+            from pipeinfer_tpu_torch.models.llama import embed
+
+            tok_rows = embed(torch.tensor(toks, dtype=torch.int32, device=cuda), params["tok_embd"])
+            np.testing.assert_array_equal(e.decode_embd(tok_rows, 0), want)
+
+            def token_path(p, toks):
+                b = Batch()
+                for i, t in enumerate(toks):
+                    b.add(t, i, 0, want_logits=(i == len(toks) - 1))
+                return InferenceContext(p, cfg, n_cells=1024, device=dev).decode(b)[-1]
+
+            toks = np.random.default_rng(0).integers(3, 300, 40).tolist()
+            want = token_path(params, toks)
+            got = InferenceContext(params, cfg, n_cells=1024, device=dev).decode_embd(
+                embed(torch.tensor(toks, dtype=torch.int32, device=cuda), params["tok_embd"]), 0)
+            monkeypatch.setenv("PIPEINFER_WEIGHT_LAYOUT", "k_major")
+            exact = token_path(load_model(lm, device=dev)[0], toks)
+            monkeypatch.setenv("PIPEINFER_WEIGHT_LAYOUT", "i4g")
+            assert LC.spread(got, want) <= LC.PAD_SHARE * LC.spread(want, exact)
+        else:
+            out[dev] = (embd, np.stack(rows))
+    assert LC.spread(out["cuda"][0].numpy(), out["cpu"][0].numpy()) <= LC.CLIP_RTOL
+    assert LC.spread(out["cuda"][1], out["cpu"][1]) <= LC.LIVE_RTOL

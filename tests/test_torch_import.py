@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing every module of
 pipeinfer_tpu_torch (the CLIs, the tokenizer and the training tools
-included) loads neither jax, optax nor pipeinfer_tpu, nor the `regex`
+included, and the image path: models.clip, cli.llava, tools.convert_clip)
+loads neither jax, optax nor pipeinfer_tpu, nor the `regex`
 package (which only a BPE vocabulary needs), chip_smoke.py imports none of
 them, and the entry points refuse to fall back to the CPU."""
 
@@ -44,7 +45,9 @@ def test_import_leaves_jax_and_reference_out():
                 "runtime.state", "tools.perplexity", "tools.bench", "tools.beam_search",
                 "tools.batched", "tools.batched_bench", "tools.embedding", "tools.shapebench",
                 "models.train", "tools.finetune", "tools.lora", "tools.export_lora",
-                "tools.convert_train_checkpoint", "tools.quantize"):
+                "tools.convert_train_checkpoint", "tools.quantize", "models.clip",
+                "cli.llava", "cli.infill", "tools.convert_clip", "utils.rundump",
+                "utils.logging"):
         assert f"pipeinfer_tpu_torch.{mod}" in res["modules"]
 
 

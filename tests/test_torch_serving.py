@@ -9,9 +9,12 @@ CPU.
   port 0 over the same nano bench pair with its synthetic SPM vocabulary
   (no vocabulary file is needed), with and without a draft model, and
   answer the same bodies with the same `content`.
-- Image input is not ported: a request's image_data answers 400, --mmproj
-  exits, and a request carrying embeddings fails; each names its ROADMAP
-  item.
+- Image segments: BatchScheduler prefills a request's token and image
+  segments at admission (the image through the context's embedding input)
+  as the JAX package does, and SpecBatchScheduler serves such a request's
+  prompt_ids as the JAX package's does. A server started without --mmproj
+  answers image_data with the JAX package's 400, and --mmproj with
+  --draft exits with its message.
 """
 
 import json
@@ -36,6 +39,7 @@ from pipeinfer_tpu.sampling.samplers import SamplingParams as JSampling
 from pipeinfer_tpu.serving import server as j_server
 from pipeinfer_tpu.serving.batching import BatchScheduler as JBatchScheduler
 from pipeinfer_tpu.serving.batching import Request as JRequest
+from pipeinfer_tpu.serving.batching import SpecBatchScheduler as JSpecBatchScheduler
 from pipeinfer_tpu.spec.multi import MultiPipeInfer as JMulti
 from pipeinfer_tpu.spec.params import SpecParams as JSpec
 from pipeinfer_tpu_torch.models import load_model
@@ -43,8 +47,7 @@ from pipeinfer_tpu_torch.runtime.context import Batch, InferenceContext
 from pipeinfer_tpu_torch.sampling.samplers import (SamplerState, SamplingParams, SparseLogits,
                                                    sample, top_probs)
 from pipeinfer_tpu_torch.serving import server as t_server
-from pipeinfer_tpu_torch.serving.batching import (EMBEDDINGS_UNPORTED, BatchScheduler, Request,
-                                                  SpecBatchScheduler)
+from pipeinfer_tpu_torch.serving.batching import BatchScheduler, Request, SpecBatchScheduler
 from pipeinfer_tpu_torch.spec.multi import MultiPipeInfer
 from pipeinfer_tpu_torch.spec.params import SpecParams
 from pipeinfer_tpu_torch.tools import testmodel
@@ -56,7 +59,6 @@ SPEC_CFG = dict(n_layers=2, n_embd=128, n_heads=4, n_kv_heads=2, n_ff=256, n_voc
 N_PREDICT = 24
 PROMPTS = [[3, 17, 42, 7], [3, 14, 15, 9, 2], [31, 4, 1, 5, 9, 26]]
 GREEDY = dict(temp=0.0)
-CLIP_ITEM = 'ROADMAP.md queue 1, "The rest of the JAX package\'s surface"'
 
 
 def _both(path):
@@ -226,27 +228,64 @@ def test_spec_scheduler_grammar_and_nprobs(model):
         assert row[0][0] == tok  # greedy commit == top candidate
 
 
-def test_requests_with_embeddings_fail(model):
-    """Image segments need the unported embedding input: both schedulers
-    fail such a request with the error that names its ROADMAP item, and
-    never decode it as text only."""
-    embd = np.zeros((2, CFG["n_embd"]), np.float32)
-    segs = [("tok", [1, 5]), ("img", embd), ("tok", [9])]
+@pytest.mark.parametrize("segments", ["text_image_text", "image_first", "two_images"])
+def test_batch_scheduler_prefills_image_segments_like_jax(model, segments):
+    """Token segments through decode and image segments through
+    decode_embd, all at admission: the port's BatchScheduler generates the
+    JAX package's ids for the same segments, beside a plain request, and
+    the image conditions the stream (another embedding, another stream)."""
+    rng = np.random.default_rng(4)
+    img = rng.standard_normal((5, CFG["n_embd"])).astype(np.float32)
+    img2 = rng.standard_normal((3, CFG["n_embd"])).astype(np.float32)
+    segs = {"text_image_text": [("tok", [1, 5]), ("img", img), ("tok", [9, 4])],
+            "image_first": [("tok", [1]), ("img", img), ("tok", [9])],
+            "two_images": [("tok", [1]), ("img", img), ("tok", [7]), ("img", img2),
+                           ("tok", [9])]}[segments]
+
+    def serve(sched_cls, req_cls, ctx, sampling_cls, segs):
+        sched = sched_cls(ctx, max_slots=2, eos_id=-1, topk=None)
+        reqs = [sched.submit(req_cls(prompt_ids=[1, 5, 9], n_predict=6,
+                                     sampling=sampling_cls(**GREEDY), segments=segs)),
+                sched.submit(req_cls(prompt_ids=PROMPTS[0], n_predict=6,
+                                     sampling=sampling_cls(**GREEDY)))]
+        sched.run_until_idle()
+        assert all(r.done and r.error is None for r in reqs)
+        return [r.generated for r in reqs]
+
+    got = serve(BatchScheduler, Request, tctx(model[1]), SamplingParams, segs)
+    want = serve(JBatchScheduler, JRequest, jctx(model[0]), JSampling, segs)
+    assert got == want
+    assert got[1] == plain_decode(model[1], PROMPTS[0], 6, SamplingParams(**GREEDY))
+    moved = [(k, p * 0.5 if k == "img" else p) for k, p in segs]
+    assert serve(BatchScheduler, Request, tctx(model[1]), SamplingParams, moved)[0] != got[0]
+    # a segmented prompt must end with text, as in the JAX package
     sched = BatchScheduler(tctx(model[1]), max_slots=2, eos_id=-1, topk=None)
-    spec = SpecBatchScheduler(tctx(model[1], 512), tctx(model[1], 512), eos_id=-1,
-                              spec_params=SpecParams(n_draft=4, n_parallel=1, max_inflight=2))
-    for s in (sched, spec):
-        req = s.submit(Request(prompt_ids=[1, 5, 9], n_predict=4,
-                               sampling=SamplingParams(**GREEDY), segments=segs))
-        s.run_until_idle()
-        assert req.done and req.error == EMBEDDINGS_UNPORTED and not req.generated
-        assert CLIP_ITEM in req.error
-    # text-only segments still decode (admission-time prefill)
-    req = sched.submit(Request(prompt_ids=[], n_predict=5, sampling=SamplingParams(**GREEDY),
-                               segments=[("tok", [5, 9]), ("tok", [23])]))
-    sched.run_until_idle()
-    assert req.error is None
-    assert req.generated == plain_decode(model[1], [5, 9, 23], 5, SamplingParams(**GREEDY))
+    sched.submit(Request(prompt_ids=[], n_predict=2, sampling=SamplingParams(**GREEDY),
+                         segments=[("tok", [1]), ("img", img)]))
+    with pytest.raises(ValueError, match="must end with text"):
+        sched.run_until_idle()
+
+
+def test_spec_scheduler_serves_segmented_requests_like_jax(model):
+    """SpecBatchScheduler keeps segmented requests off the device lanes and
+    hands the host engine their prompt_ids, as the JAX package's does (its
+    server never sends it images: --mmproj with --draft exits): the same
+    ids as the JAX scheduler and as plain decoding of prompt_ids."""
+    img = np.ones((4, CFG["n_embd"]), np.float32)
+    segs = [("tok", [1, 5]), ("img", img), ("tok", [9])]
+    sp = dict(n_draft=4, n_parallel=1, max_inflight=2)
+    got = []
+    for sched, req_cls, samp in (
+            (SpecBatchScheduler(tctx(model[1], 512), tctx(model[1], 512), eos_id=-1,
+                                spec_params=SpecParams(**sp)), Request, SamplingParams),
+            (JSpecBatchScheduler(jctx(model[0], 512), jctx(model[0], 512), eos_id=-1,
+                                 spec_params=JSpec(**sp)), JRequest, JSampling)):
+        req = sched.submit(req_cls(prompt_ids=[1, 5, 9], n_predict=6, sampling=samp(**GREEDY),
+                                   segments=segs))
+        sched.run_until_idle()
+        assert req.done and req.error is None
+        got.append(req.generated)
+    assert got[0] == got[1] == plain_decode(model[1], [1, 5, 9], 6, SamplingParams(**GREEDY))
 
 
 # -- MultiPipeInfer -------------------------------------------------------------
@@ -456,23 +495,40 @@ def test_http_stop_sequences(servers):
     assert final["stopped_word"] is True and text == base[: base.find(stop)]
 
 
-def test_image_data_is_400_and_mmproj_exits(servers):
-    """Image input is not ported: image_data answers 400 and --mmproj
-    exits, each naming the ROADMAP item of models/clip.py."""
+def test_image_data_without_mmproj_is_400(servers):
+    """A server started without --mmproj answers a request's image_data
+    with the JAX package's 400, with and without a draft model."""
+    body = {"prompt": "[img-1] what is this?", "n_predict": 4,
+            "image_data": [{"id": 1, "data": "AAAA"}]}
     for draft in (False, True):
-        with pytest.raises(urllib.error.HTTPError) as e:
-            _post(servers["torch", draft], {"prompt": "[img-1] what is this?", "n_predict": 4,
-                                            "image_data": [{"id": 1, "data": "AAAA"}]})
-        assert e.value.code == 400
-        err = json.loads(e.value.read())["error"]
-        assert "models/clip.py" in err and CLIP_ITEM in err
-    for call in (lambda: t_server.serve("absent.gguf", "127.0.0.1", 0, mmproj_path="p.gguf",
-                                        device="cpu"),
-                 lambda: t_server.main(["-m", "absent.gguf", "--mmproj", "p.gguf", "--device",
-                                        "cpu"])):
-        with pytest.raises(SystemExit) as e:
-            call()
-        assert "models/clip.py" in str(e.value.code) and CLIP_ITEM in str(e.value.code)
+        errs = []
+        for pkg in ("jax", "torch"):
+            with pytest.raises(urllib.error.HTTPError) as e:
+                _post(servers[pkg, draft], body)
+            assert e.value.code == 400
+            errs.append(json.loads(e.value.read())["error"])
+        assert errs[0] == errs[1] == "server started without --mmproj"
+
+
+def test_mmproj_checks_exit_like_jax(nano_pair, tmp_path):
+    """--mmproj with --draft exits with the JAX package's message, and so
+    does a projector whose width is not the model's."""
+    t, dr = nano_pair
+    fits = testmodel.build_mmproj(tmp_path / "mm256.gguf", "nano", seed=1, n_embd=256)
+    narrow = testmodel.build_mmproj(tmp_path / "mm64.gguf", "nano", seed=1)
+    for mm, draft, want in ((fits, str(dr), "--mmproj and --draft cannot be combined yet"),
+                            (narrow, None, "projector width 64 != model embedding 256")):
+        msgs = []
+        for mod, extra in ((j_server, {}), (t_server, {"device": "cpu"})):
+            with pytest.raises(SystemExit) as e:
+                mod.serve(str(t), "127.0.0.1", 0, n_cells=256, mmproj_path=str(mm),
+                          draft_path=draft, **extra)
+            msgs.append(str(e.value.code))
+        assert msgs[0] == msgs[1] and want in msgs[1]
+    with pytest.raises(SystemExit) as e:
+        t_server.main(["-m", str(t), "--mmproj", str(fits), "--draft", str(dr), "--device",
+                       "cpu", "-c", "256"])
+    assert "cannot be combined" in str(e.value.code)
 
 
 def test_module_entry_serves(nano_pair, servers):
