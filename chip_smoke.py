@@ -118,6 +118,16 @@ Phases, each failing the run (non-zero exit, no result line) on a miss:
    shift; cli.main -i --color on a scripted stdin; on a copy of the
    target with FIM ids, cli.infill with --logdir and --profile (the YAML
    and a torch.profiler trace) and cli.main --fim-prefix/--fim-suffix.
+13. dcn, on the 7B target cut to DCN_DEPTH layers: the cross-process
+   pipeline (parallel/dcn.py), launch_local_cluster starting two stage
+   workers on the card and RemoteStagedContext holding stage 0 and the
+   draft: over the f32 wire the prompt's and 8 steps' logits equal one
+   process's within DCN_TOL; PipeInferController over the 3 processes
+   emits plain greedy's stream, accepting drafts and canceling runs in
+   flight; over the bf16 wire the logits stay within DCN_BF16_TOL, not
+   bit-equal, and the controller completes; every worker exits 0 with its
+   launch line showing i4g, and the head launched i4g and cell attention;
+   tok/s beside one process's controller and 3-stage target, not gated.
 The main, serve and tools phases share one load of the full-depth 7B
 pair's files (share_pair_loads); every CLI loads its own.
 
@@ -3066,6 +3076,250 @@ def run_chat(counters: dict, records: dict) -> list:
 
 
 # ---------------------------------------------------------------------------
+# dcn: the cross-process pipeline (parallel/dcn.py)
+# ---------------------------------------------------------------------------
+
+DCN_DEPTH = 8  # layers of the 7B target, cut as CLI_DEPTH (the stream does not depend on it)
+DCN_STAGES = 3  # the head (stage 0 and the draft) and two stage workers, all on the one card
+DCN_N_CELLS = 1024  # >= 512: single-token steps take the cell kernel on every stage
+DCN_STEPS = 8  # single-token steps after the prompt in the logits checks
+DCN_TOL = 2e-4  # tests/test_torch_stages.py's TOL (rtol and atol): the f32 wire adds no rounding
+DCN_BF16_TOL = 3e-2  # tests/test_dcn.py's bar (rtol and atol) for the bf16 wire
+DCN_BF16_N = 32  # tokens of the controller run over the bf16 wire
+DCN_WORKER_DEVICE = "cuda"  # every worker's --device: the card the head runs on
+
+
+@contextlib.contextmanager
+def _dcn_wire(name: str):
+    """The head's PIPEINFER_DCN_WIRE (the workers follow it) set to name."""
+    old = os.environ.get("PIPEINFER_DCN_WIRE")
+    os.environ["PIPEINFER_DCN_WIRE"] = name
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("PIPEINFER_DCN_WIRE", None)
+        else:
+            os.environ["PIPEINFER_DCN_WIRE"] = old
+
+
+def _dcn_steps(ctx, prompt: list[int], tokens: list[int]) -> list:
+    """Every position's logits of the prompt (T = 32, the dense path),
+    then one single-token step (T = 1, the cell kernel) per token."""
+    import numpy as np
+
+    from pipeinfer_tpu_torch.runtime.context import Batch
+
+    b = Batch()
+    for i, t in enumerate(prompt):
+        b.add(t, i, 0, want_logits=True)
+    out = [np.asarray(ctx.decode(b))]
+    for i, t in enumerate(tokens):
+        b = Batch()
+        b.add(t, len(prompt) + i, 0)
+        out.append(np.asarray(ctx.decode(b)))
+    return out
+
+
+def _dcn_spread(got: list, want: list) -> tuple[float, float]:
+    """(max |got - want|, the largest amount by which it exceeds
+    DCN_TOL * (1 + |want|): <= 0 within the bar)."""
+    import numpy as np
+
+    err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+    over = max(float((np.abs(g - w) - DCN_TOL * (1 + np.abs(w))).max())
+               for g, w in zip(got, want))
+    return err, over
+
+
+def _worker_lines(logs: list[Path]) -> list[dict]:
+    """Each worker's exit line ("dcn worker: stage i device D launches
+    {...}"), parsed."""
+    rows = []
+    for p in logs:
+        lines = [ln for ln in p.read_text().splitlines() if ln.startswith("dcn worker:")]
+        if len(lines) != 1:
+            raise AssertionError(f"[dcn] {p.name} holds {len(lines)} exit lines:\n"
+                                 f"{p.read_text()[-2000:]}")
+        head, _, counts = lines[0].partition(" launches ")
+        rows.append(dict(line=head, launches=json.loads(counts)))
+    return rows
+
+
+def run_dcn(counters: dict, records: dict, n_predict: int) -> dict:
+    """The cross-process PipeInfer pipeline on the 7B Q4_K pair (target cut
+    to DCN_DEPTH layers): launch_local_cluster starts DCN_STAGES - 1 stage
+    workers on the card (processes of their own, each loading the file),
+    RemoteStagedContext keeps stage 0 and the draft here. Checks, each
+    failing the run: over the f32 wire the prompt's and DCN_STEPS steps'
+    logits equal a single-process InferenceContext's within DCN_TOL; the
+    PipeInferController over the remote target emits plain greedy's
+    n_predict tokens, accepts drafts and cancels runs in flight; over the
+    bf16 wire the logits stay within DCN_BF16_TOL but not bit-equal and the
+    controller completes; every worker exits 0, its exit line showing i4g
+    launches, and the head launched i4g and cell attention in the
+    controller run. tok/s beside the single-process controller
+    (device-corrected) and a single-process 3-stage target, not gated."""
+    import numpy as np
+    import torch
+
+    from pipeinfer_tpu_torch.models import load_model
+    from pipeinfer_tpu_torch.parallel import dcn
+    from pipeinfer_tpu_torch.parallel.stages import StagedInferenceContext
+    from pipeinfer_tpu_torch.runtime.context import InferenceContext
+    from pipeinfer_tpu_torch.sampling.samplers import SamplingParams
+    from pipeinfer_tpu_torch.spec.controller import PipeInferController
+    from pipeinfer_tpu_torch.spec.params import SpecParams
+    from pipeinfer_tpu_torch.tools.benchpair import cached_bench_pair, cut_depth
+
+    t_full, d_path = cached_bench_pair(ROOT / "build" / "bench", "7b", "Q4_K", 0.02, log=log)
+    t_path = cut_depth(t_full, t_full.with_name(f"target_d{DCN_DEPTH}.gguf"), DCN_DEPTH, log=log)
+    log_dir = ROOT / "chiprun_out" / "dcn"
+    log_dir.mkdir(parents=True, exist_ok=True)
+    logs = [Path(dcn.worker_log(log_dir, i)) for i in range(1, DCN_STAGES)]
+    t0 = time.perf_counter()
+    workers, head_port, procs = dcn.launch_local_cluster(
+        str(t_path), DCN_STAGES, n_cells=DCN_N_CELLS, device=DCN_WORKER_DEVICE, log_dir=log_dir)
+    try:
+        tparams, tcfg = load_model(t_path)  # while the workers load theirs
+        dparams, dcfg = load_model(d_path)
+        ctx = dcn.RemoteStagedContext(tparams, tcfg, workers=workers, n_cells=DCN_N_CELLS,
+                                      head_port=head_port, connect_timeout=600)
+        ctx.ping()
+        up_s = time.perf_counter() - t0
+        log(f"[dcn] {DCN_STAGES} stages up in {up_s:.1f} s: layers {ctx.ranges} "
+            f"({tcfg.n_layers}L target, n_embd {tcfg.n_embd}); workers "
+            f"{[p.pid for p in procs]} on {DCN_WORKER_DEVICE}")
+        rng = np.random.default_rng(SEED)
+        prompt = [1] + rng.integers(3, tcfg.n_vocab, 31).tolist()
+        greedy = SamplingParams(temp=0.0, penalty_repeat=1.0, penalty_last_n=0)
+        sp = SpecParams(n_draft=8, n_parallel=1, p_accept=0.1, p_split=0.9, max_inflight=4)
+
+        def single():
+            return InferenceContext(tparams, tcfg, n_cells=DCN_N_CELLS)
+
+        def controller(tgt):
+            return PipeInferController(tgt, InferenceContext(dparams, dcfg, n_cells=DCN_N_CELLS),
+                                       greedy, sp, eos_id=-1)
+
+        # the single-process references: plain greedy, the logits, the controllers
+        want, _ = _greedy(single(), prompt, n_predict)
+        ref = _dcn_steps(single(), prompt, want[:DCN_STEPS])
+        timed = {}
+        for name, make in (("single", single), ("staged3", lambda: StagedInferenceContext(
+                tparams, tcfg, n_cells=DCN_N_CELLS, devices=["cuda"] * DCN_STAGES))):
+            c = controller(make())
+            t1 = time.perf_counter()
+            got = c.generate(list(prompt), n_predict, ignore_eos=True)
+            torch.cuda.synchronize()
+            timed[name] = dict(tok_s=n_predict / (time.perf_counter() - t1),
+                               mode="corrected" if c.use_corrected else "host",
+                               acceptance=c.stats.n_accept / max(c.stats.n_drafted, 1))
+            if got != want:
+                raise AssertionError(f"[dcn] the {name} controller differs from plain greedy")
+
+        # 1. the f32 wire: logits against the single process
+        with _dcn_wire("f32"):
+            got = _dcn_steps(ctx, prompt, want[:DCN_STEPS])
+        f32_err, f32_over = _dcn_spread(got, ref)
+        scale = max(float(np.abs(w).max()) for w in ref)
+        if f32_over > 0:
+            raise AssertionError(f"[dcn] f32 wire: logits {f32_err:.3e} from the single process, "
+                                 f"past {DCN_TOL} (rtol and atol)")
+
+        # 2. the controller over the remote target (f32 wire): warm, then counted
+        with _dcn_wire("f32"):
+            ctx.clear_cache()
+            controller(ctx).generate(list(prompt), 16, ignore_eos=True)
+            ctx.clear_cache()
+            c = controller(ctx)
+            if c.use_fused or c.use_corrected:
+                raise AssertionError("[dcn] a remote target engaged the fused or corrected mode")
+            before = ctx.ping()
+            for k in counters.values():
+                k.launches = 0
+            t1 = time.perf_counter()
+            got = c.generate(list(prompt), n_predict, ignore_eos=True)
+            torch.cuda.synchronize()
+            t_ctrl = time.perf_counter() - t1
+            head = {k: fn.launches for k, fn in counters.items()}
+            after = ctx.ping()
+        worker_counts = [{k: a[k] - b[k] for k in a} for a, b in zip(after, before)]
+        if got != want:
+            first = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+            raise AssertionError(f"[dcn] the controller over {DCN_STAGES} processes differs from "
+                                 f"plain greedy at token {first}: {got[first:first + 8]} vs "
+                                 f"{want[first:first + 8]}")
+        st, m = c.stats, c.metrics
+        if st.n_accept == 0 or m.n_canceled_runs == 0:
+            raise AssertionError(f"[dcn] controller accepted {st.n_accept} drafts and canceled "
+                                 f"{m.n_canceled_runs} runs: both must be above 0")
+        timed["dcn"] = dict(tok_s=n_predict / t_ctrl, mode="host",
+                            acceptance=st.n_accept / max(st.n_drafted, 1))
+
+        # 3. the bf16 wire (the default): within its bar, not bit-equal; the controller completes
+        with _dcn_wire("bf16"):
+            ctx.clear_cache()
+            got = _dcn_steps(ctx, prompt, want[:DCN_STEPS])
+            bf16_err = max(float(np.abs(g - w).max()) for g, w in zip(got, ref))
+            bf16_ok = all(np.allclose(g, w, rtol=DCN_BF16_TOL, atol=DCN_BF16_TOL)
+                          for g, w in zip(got, ref))
+            ctx.clear_cache()
+            cb = controller(ctx)
+            t1 = time.perf_counter()
+            bf16_toks = cb.generate(list(prompt), DCN_BF16_N, ignore_eos=True)
+            t_bf16 = time.perf_counter() - t1
+        if not bf16_ok or bf16_err == 0:
+            raise AssertionError(f"[dcn] bf16 wire: logits {bf16_err:.3e} from the single "
+                                 f"process (bar {DCN_BF16_TOL}, and not 0)")
+        if len(bf16_toks) != DCN_BF16_N:
+            raise AssertionError(f"[dcn] bf16 wire: the controller gave {len(bf16_toks)} tokens")
+
+        # 4. every worker exits 0 with its launch line
+        ctx.shutdown()
+        rcs = [p.wait(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if rcs != [0] * len(procs):
+        raise AssertionError(f"[dcn] stage workers exited {rcs}:\n"
+                             + "\n".join(p.read_text()[-1500:] for p in logs))
+    lines = _worker_lines(logs)
+    for i, (row, counts) in enumerate(zip(lines, worker_counts), start=1):
+        if row["launches"]["i4g_matmul"] == 0 or counts["i4g_matmul"] == 0:
+            raise AssertionError(f"[dcn] worker {i} never launched i4g: {row}")
+    for k in ("i4g_matmul", "cell_attention"):
+        if head[k] == 0:
+            raise AssertionError(f"[dcn] the head never launched {k} in the controller run")
+    for k, rec in records.items():
+        rec["launches_dcn"] = dict(head=head[k], **{f"worker{i}": n[k] for i, n in
+                                                    enumerate(worker_counts, start=1)})
+    res = dict(label="dcn", target=str(t_path), n_layers=tcfg.n_layers, ranges=ctx.ranges,
+               n_predict=n_predict, prompt_len=len(prompt), n_cells=DCN_N_CELLS, up_s=up_s,
+               f32_max_abs_err=f32_err, logit_scale=scale, bf16_max_abs_err=bf16_err,
+               bf16_tok_s=DCN_BF16_N / t_bf16, engines=timed, n_accept=st.n_accept,
+               n_drafted=st.n_drafted, runs=m.n_runs, canceled=m.n_canceled_runs,
+               launches_head=head, launches_workers=worker_counts,
+               worker_exit=lines, card=card_line())
+    log(f"[dcn] logits over {DCN_STAGES} processes: f32 wire {f32_err:.3e}, bf16 wire "
+        f"{bf16_err:.3e} (max |logit| {scale:.2f})")
+    log(f"[dcn] controller over {DCN_STAGES} processes == plain greedy over {n_predict} tokens: "
+        f"acceptance {st.n_accept}/{st.n_drafted}, runs {m.n_runs}, canceled {m.n_canceled_runs}; "
+        f"launches head {head}, workers {worker_counts}")
+    log(f"[dcn] tok/s on {res['card']}: " + ", ".join(
+        f"{k} {v['tok_s']:.1f} ({v['mode']})" for k, v in timed.items())
+        + f"; bf16 wire {res['bf16_tok_s']:.1f}")
+    for row in lines:
+        log(f"[dcn] {row['line']} launches {row['launches']}")
+    del tparams, dparams, ctx, c, cb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 
 def share_pair_loads(pair_dir: Path) -> dict:
@@ -3099,9 +3353,10 @@ def share_pair_loads(pair_dir: Path) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="kernels,main,i8g,cli,serve,arch,tools,train,llava,chat",
+    ap.add_argument("--phases",
+                    default="kernels,main,i8g,cli,serve,arch,tools,train,llava,chat,dcn",
                     help="comma list of kernels, main, i8g, cli, serve, arch, tools, train, "
-                         "llava, chat "
+                         "llava, chat, dcn "
                          "(default: all); "
                          "qmatmul runs only the i4g and i8g part of kernels, exact only the "
                          "k_major, i8 and k4 part")
@@ -3217,6 +3472,11 @@ def main() -> int:
         t0 = time.perf_counter()
         runs.extend(run_chat(counters, records))
         log(f"[chat] phase took {time.perf_counter() - t0:.1f} s")
+
+    if "dcn" in phases:
+        t0 = time.perf_counter()
+        runs.append(run_dcn(counters, records, args.n_predict))
+        log(f"[dcn] phase took {time.perf_counter() - t0:.1f} s")
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -206,6 +206,40 @@ def unpack_sparse(row: np.ndarray, topk: int) -> SparseLogits:
     return SparseLogits(row[topk: 2 * topk].astype(np.int32), row[:topk], float(row[2 * topk]))
 
 
+def apply_seq_op(cache: kv.KVCache, cfg: ModelConfig, op: str, a: dict) -> None:
+    """The device half of seq op `op` on one cache slab, in place, enqueued
+    without waiting. `a` holds the op's arguments by name, as
+    CellContext's seq ops pass them (and parallel.dcn sends them to the
+    stages in other processes)."""
+    if op == "seq_rm":
+        kv.seq_rm(cache, int(a["seq_id"]), int(a["p0"]), int(a["p1"]))
+    elif op == "seq_cp":
+        kv.seq_cp(cache, int(a["src"]), int(a["dst"]), int(a["p0"]), int(a["p1"]))
+    elif op == "prepare":
+        for sq in a["seqs"]:
+            kv.seq_rm(cache, int(sq), 0, -1)
+            kv.seq_cp(cache, int(a["src"]), int(sq), 0, int(a["p1"]))
+    elif op == "consolidate":
+        kv.seq_cp(cache, int(a["win"]), int(a["dst"]), int(a["p0"]), int(a["p1"]))
+        for sq in a["branch_seqs"]:
+            kv.seq_rm(cache, int(sq), 0, -1)
+    elif op == "seq_keep":
+        kv.seq_keep(cache, int(a["seq_id"]))
+    elif op == "rm_tail":
+        kv.rm_tail(cache, int(a["p0"]))
+    elif op == "shift":
+        cells = h2d(np.asarray(a["cells"], np.int32), cache.pos.device)
+        kv.shift_cells(cache, cells, int(a["delta"]), int(a["trash"]), rope_dims=cfg.rope_dims,
+                       rope_mode=cfg.rope_mode, freq_base=cfg.rope_base,
+                       freq_scale=cfg.rope_scale)
+    elif op == "clear":
+        kv.clear(cache)
+    elif op == "hot":
+        cache.hot = int(a["hot"])
+    else:
+        raise ValueError(f"unknown seq op {op!r}")
+
+
 class CellContext:
     """The host half of a decode engine over one or more KV-cache slabs:
     cell allocation on a host numpy mirror of (pos, seq), the seq ops
@@ -326,10 +360,16 @@ class CellContext:
     # Each is the counterpart of a pipelined KV transaction in the reference
     # (llama.cpp:9238-9359), which a pipelined target fans out to every
     # stage; the device side updates each slab in place, without waiting.
+    # The device half is one named op (apply_seq_op), so a target whose
+    # stages live in other processes (parallel.dcn) sends the same op to them.
+
+    def _seq_op(self, op: str, **args):
+        """Apply seq op `op` to every slab's device side."""
+        for c in self.caches:
+            apply_seq_op(c, self.cfg, op, args)
 
     def seq_rm(self, seq_id: int, p0: int = 0, p1: int = -1):
-        for c in self.caches:
-            kv.seq_rm(c, seq_id, p0, p1)
+        self._seq_op("seq_rm", seq_id=seq_id, p0=p0, p1=p1)
         hp1 = np.iinfo(np.int64).max if p1 < 0 else p1
         hit = kv.host_member(self.h_seq, seq_id)
         hit &= (self.h_pos >= p0) & (self.h_pos < hp1)
@@ -337,8 +377,7 @@ class CellContext:
         self.h_pos[kv.host_empty(self.h_seq)] = -1
 
     def seq_cp(self, src: int, dst: int, p0: int = 0, p1: int = -1):
-        for c in self.caches:
-            kv.seq_cp(c, src, dst, p0, p1)
+        self._seq_op("seq_cp", src=src, dst=dst, p0=p0, p1=p1)
         hp1 = np.iinfo(np.int64).max if p1 < 0 else p1
         hit = kv.host_member(self.h_seq, src)
         hit &= (self.h_pos >= p0) & (self.h_pos < hp1)
@@ -347,15 +386,13 @@ class CellContext:
     def rm_tail(self, p0: int):
         """Free every cell at pos >= p0 on ALL sequences (the reference's
         seq_rm(-1, p0, -1), llama.cpp:9245-9265)."""
-        for c in self.caches:
-            kv.rm_tail(c, p0)
+        self._seq_op("rm_tail", p0=p0)
         hit = self.h_pos >= p0
         self.h_seq[hit] = 0
         self.h_pos[hit] = -1
 
     def seq_keep(self, seq_id: int):
-        for c in self.caches:
-            kv.seq_keep(c, seq_id)
+        self._seq_op("seq_keep", seq_id=seq_id)
         keep = kv.host_member(self.h_seq, seq_id)
         self.h_seq[:] = 0
         self.h_seq[keep] = kv.host_only(seq_id)
@@ -374,10 +411,7 @@ class CellContext:
         if len(cells):
             padded = np.full(_bucket(len(cells)), self.trash_cell, np.int32)
             padded[: len(cells)] = cells
-            for c in self.caches:
-                kv.shift_cells(c, h2d(padded, c.pos.device), int(delta), self.trash_cell,
-                               rope_dims=self.cfg.rope_dims, rope_mode=self.cfg.rope_mode,
-                               freq_base=self.cfg.rope_base, freq_scale=self.cfg.rope_scale)
+            self._seq_op("shift", cells=padded, delta=delta, trash=self.trash_cell)
         self.h_pos[hit] += delta
         dropped = hit & (self.h_pos < 0)
         self.h_seq[dropped] = 0
@@ -388,10 +422,7 @@ class CellContext:
         it. device=False updates only the host mirrors (the fused run
         applies the device side itself)."""
         if device:
-            for c in self.caches:
-                for sq in seqs:
-                    kv.seq_rm(c, sq, 0, -1)
-                    kv.seq_cp(c, src, sq, 0, p1)
+            self._seq_op("prepare", seqs=seqs, src=src, p1=p1)
         for sq in seqs:
             kv.host_clear(self.h_seq, sq)
         self.h_pos[kv.host_empty(self.h_seq)] = -1
@@ -402,10 +433,7 @@ class CellContext:
     def consolidate(self, win_seq: int, branch_seqs: list[int], p0: int, p1: int, dst: int = 0):
         """Share win_seq's cells [p0, p1) with the committed sequence `dst`,
         then drop all branch seqs (verification retirement)."""
-        for c in self.caches:
-            kv.seq_cp(c, win_seq, dst, p0, p1)
-            for sq in branch_seqs:
-                kv.seq_rm(c, sq, 0, -1)
+        self._seq_op("consolidate", win=win_seq, branch_seqs=branch_seqs, p0=p0, p1=p1, dst=dst)
         hit = kv.host_member(self.h_seq, win_seq) & (self.h_pos >= p0) & (self.h_pos < p1)
         kv.host_set(self.h_seq, dst, hit)
         for sq in branch_seqs:
@@ -413,8 +441,7 @@ class CellContext:
         self.h_pos[kv.host_empty(self.h_seq)] = -1
 
     def clear_cache(self):
-        for c in self.caches:
-            kv.clear(c)
+        self._seq_op("clear")
         self.h_pos[:] = -1
         self.h_seq[:] = 0
 

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing every module of
 pipeinfer_tpu_torch (the CLIs, the tokenizer and the training tools
-included, and the image path: models.clip, cli.llava, tools.convert_clip)
-loads neither jax, optax nor pipeinfer_tpu, nor the `regex`
+included, the image path: models.clip, cli.llava, tools.convert_clip, the
+cross-process pipeline parallel.dcn and the file tools) loads neither jax,
+optax, ml_dtypes nor pipeinfer_tpu, nor the `regex`
 package (which only a BPE vocabulary needs), chip_smoke.py imports none of
 them, and the entry points refuse to fall back to the CPU."""
 
@@ -26,7 +27,7 @@ for n in names:
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.") or m == "pipeinfer_tpu"
                 or m.startswith("pipeinfer_tpu.") or m == "regex" or m == "optax"
-                or m.startswith("optax."))
+                or m.startswith("optax.") or m == "ml_dtypes" or m.startswith("ml_dtypes."))
 print(json.dumps({"modules": names, "leaked": leaked}))
 """
 
@@ -47,7 +48,9 @@ def test_import_leaves_jax_and_reference_out():
                 "models.train", "tools.finetune", "tools.lora", "tools.export_lora",
                 "tools.convert_train_checkpoint", "tools.quantize", "models.clip",
                 "cli.llava", "cli.infill", "tools.convert_clip", "utils.rundump",
-                "utils.logging"):
+                "utils.logging", "parallel.dcn", "tools.convert_hf", "tools.convert_llama2c",
+                "tools.gguf_dump", "tools.tokenize", "tools.json_schema", "tools.preset",
+                "tools.results", "tools.quantize_stats"):
         assert f"pipeinfer_tpu_torch.{mod}" in res["modules"]
 
 
@@ -65,7 +68,7 @@ def _imported_roots(path: Path) -> set[str]:
 def test_sources_import_no_jax(rel):
     paths = [ROOT / rel] if rel.endswith(".py") else sorted((ROOT / rel).rglob("*.py"))
     for p in paths:
-        bad = _imported_roots(p) & {"jax", "jaxlib", "optax", "pipeinfer_tpu"}
+        bad = _imported_roots(p) & {"jax", "jaxlib", "optax", "ml_dtypes", "pipeinfer_tpu"}
         assert not bad, f"{p.relative_to(ROOT)} imports {bad}"
 
 
