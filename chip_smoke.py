@@ -128,6 +128,21 @@ Phases, each failing the run (non-zero exit, no result line) on a miss:
    bit-equal, and the controller completes; every worker exits 0 with its
    launch line showing i4g, and the head launched i4g and cell attention;
    tok/s beside one process's controller and 3-stage target, not gated.
+14. multi, every mesh entry on parallel.mesh.default_devices (cuda:i %
+   device_count: one card repeats cuda:0): i4g at M = 1 over the 7B's
+   4-bit tensors at their tp = 2 and 4 shard widths and cell attention at
+   the shard-local heads (H = KVH = 16 and 8) against their plain
+   versions, timed; on the 2-layer live llama at 7B width,
+   InferenceContext(mesh=tp_mesh(2 and 4 entries)) against one device
+   over the prompt and 8 steps within live_check.LIVE_RTOL, the shards gathered
+   backwards past it; PipeInferController over StagedInferenceContext(4
+   entries, tp=2) (2 stages x 2-way TP of the target cut to DCN_DEPTH
+   layers) emitting plain greedy's stream with i4g and cell attention
+   launched, tok/s beside the tp = 1 two-stage target; the fused pp 2 x
+   tp 2 x dp 2 step with 2 microbatches on the live llama against one
+   device within MULTI_PF_RTOL; and two processes on the card over gloo
+   running that step on a global_mesh, each within MULTI_MH_RTOL of the
+   one-process step.
 The main, serve and tools phases share one load of the full-depth 7B
 pair's files (share_pair_loads); every CLI loads its own.
 
@@ -3320,6 +3335,428 @@ def run_dcn(counters: dict, records: dict, n_predict: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# multi: tensor parallelism, the fused pipeline and two processes
+# ---------------------------------------------------------------------------
+
+MULTI_N_CELLS = 1024  # >= 512: single-token steps take the cell kernel on every shard
+MULTI_TP = (2, 4)  # the TP widths of the logits check, each against one device
+MULTI_PF_RTOL = 0.03  # tests/test_pipefused.py's bar, of max|logit|
+MULTI_MH_RTOL = 2e-3  # tests/test_multihost.py's bar, of max|logit|
+MULTI_PF = dict(pp=2, tp=2, dp=2, mb=2)  # the fused step's mesh and microbatches
+MULTI_PF_T = 9  # prompt tokens of each stream of the fused step
+MULTI_WORKER_TIMEOUT = 300  # seconds per multihost worker
+MULTI_WORKER_DEVICE = "cuda:0"  # each multihost worker's mesh entries: the one card, repeated
+# i4g at M = 1 over the 7B's 4-bit tensors cut tp ways along N
+MULTI_I4G = {name: I4G_SHAPES[name] for name in ("wqkv", "wo", "wgu", "w_down", "output")}
+MULTI_ATTN = [(16, 128, 1024), (8, 128, 1024)]  # (H = KVH, D, C): the shard-local heads
+
+MULTI_WORKER = """
+import sys
+import numpy as np
+import torch
+from pipeinfer_tpu_torch.models import load_model
+from pipeinfer_tpu_torch.parallel import pipefused as pf
+from pipeinfer_tpu_torch.parallel.multihost import global_mesh, init_distributed
+pid, port, out, model = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+tokens, device = np.load(sys.argv[5]), sys.argv[6]
+init_distributed(f"localhost:{port}", num_processes=2, process_id=pid, timeout_s=240)
+params, cfg = load_model(model, device=device)
+pp, tp, dp, mb = (int(a) for a in sys.argv[7:11])
+pc = pf.PipeConfig(n_stages=pp, tp=tp, dp=dp, n_microbatches=mb)
+mesh = global_mesh(pp=pp, tp=tp, dp=dp, local_devices=[device] * (pp * tp * dp // 2))
+step = pf.build_step(cfg, pc, mesh)
+cache = pf.init_cache(cfg, pc, mesh, batch=tokens.shape[0], max_len=64)
+logits, _ = step(pf.stack_params(params, cfg, pc, mesh), cache, tokens,
+                 np.arange(tokens.shape[1], dtype=np.int32))
+np.save(out, logits.cpu().numpy())
+print(f"multihost worker {pid}: {mesh}", flush=True)
+"""
+
+
+@contextlib.contextmanager
+def _gathered_backwards():
+    """Within: every tiled all_gather concatenates its group's shards in
+    reverse order (the fault the TP logits bar must catch)."""
+    from pipeinfer_tpu_torch.parallel import mesh as M
+
+    real = M.Mesh.all_gather
+
+    def backwards(self, xs, axis, dim, coords=None):
+        coords = self.local if coords is None else coords
+        out = real(self, xs, axis, dim, coords)
+        n = self.shape[axis]
+        return [_flip_blocks(o, dim, n) for o in out]
+
+    M.Mesh.all_gather = backwards
+    try:
+        yield
+    finally:
+        M.Mesh.all_gather = real
+
+
+def _flip_blocks(t, dim: int, n: int):
+    """t cut into n equal blocks along dim, put back in reverse order."""
+    import torch
+
+    return torch.cat(list(reversed(t.chunk(n, dim=dim))), dim=dim)
+
+
+def check_multi_shapes(details: list):
+    """i4g at M = 1 over the 7B's 4-bit tensors at their tp = 2 and 4 shard
+    widths and cell attention at the shard-local heads (H = KVH = 16 and
+    8, T = 1), each against its plain version (i4g with the bitwise
+    repeat), timed beside its bound."""
+    import torch
+
+    from pipeinfer_tpu_torch.ops import cell_attention as CA
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    for tp in MULTI_TP:
+        for name, (n_full, k) in MULTI_I4G.items():
+            n = n_full // tp
+            planes = _split_planes("i4g", n, k, dev, g, copies_for(n * k // 2))
+            x = torch.randn(1, k, device=dev, generator=g)
+            kern, plain, ins, name_k, ops = _split_inputs("i4g", x, planes)
+            err, scale = _check_repeat(kern, plain, ins[0], f"i4g {name}/tp{tp} M=1")
+            it = iter(range(1 << 30))
+            ms = gpu_ms(lambda: kern(*ins[next(it) % len(ins)]))
+            b_ms, b_by = bound(nbytes(*ins[0]) + 4 * n, ops, "int8")
+            cut = _cut(kern)
+            details.append(dict(kernel=name_k, tensor=name, tp=tp, N=n, K=k, M=1,
+                                max_abs_err=err, tol=MATMUL_RTOL * scale, ms=ms, bound_ms=b_ms,
+                                bound_by=b_by, plan=cut, phase="multi"))
+            log(f"i4g_matmul {name:7s}/tp{tp} [{n}x{k}] M=1: err {err:.3g} (tol "
+                f"{MATMUL_RTOL * scale:.3g}), {ms:.4f} ms (bound {b_ms:.4f} ms, {b_by})"
+                + ("" if cut is None else f"  [{cut['splits']} splits, {cut['blocks']} blocks]"))
+            del planes, ins
+    for h, d, c in MULTI_ATTN:  # every cell visible to the one row, as the record's shape
+        kc, vc = _attn_cache(h, d, c, dev, g)
+        n_l = kc.shape[0]
+        pos = torch.arange(c, dtype=torch.int32, device=dev)
+        seq = torch.zeros(c, 2, dtype=torch.int32, device=dev)
+        seq[:, 0] = 1
+        q = torch.randn(1, h, d, device=dev, generator=g)
+        tok = (torch.tensor([c - 1], dtype=torch.int32, device=dev),
+               torch.zeros(1, dtype=torch.int32, device=dev),
+               torch.ones(1, dtype=torch.bool, device=dev))
+        got = CA.cell_attention(q, kc, vc, pos, seq, *tok, layer=1, scale=d ** -0.5, hot=0)
+        want = CA._cell_attention_plain(q, kc, vc, pos, seq, *tok, 1, d ** -0.5, None, c)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if not err <= ATTN_ATOL:
+            raise AssertionError(f"cell_attention H=KVH={h} D={d} C={c}: max err {err}")
+        it = iter(range(1 << 30))
+        ms = gpu_ms(lambda: CA.cell_attention(q, kc, vc, pos, seq, *tok, layer=next(it) % n_l,
+                                              scale=d ** -0.5, hot=0))
+        io = 2 * h * c * d * 2 + nbytes(q, *tok) + c * 4 * (1 + seq.shape[1]) + h * d * 4
+        b_ms, b_by = bound(io, 4 * h * c * d, "f32")
+        details.append(dict(kernel="cell_attention", T=1, H=h, KVH=h, D=d, C=c, max_abs_err=err,
+                            tol=ATTN_ATOL, ms=ms, bound_ms=b_ms, bound_by=b_by, phase="multi"))
+        log(f"cell_attention T=1 H=KVH={h} D={d} C={c}: err {err:.3g} (tol {ATTN_ATOL}), "
+            f"{ms:.4f} ms (bound {b_ms:.4f} ms, {b_by})")
+        del kc, vc
+
+
+def _multi_tp_logits(counters: dict, live: Path) -> dict:
+    """The live llama at 7B width: InferenceContext over tp_mesh of 2 and 4
+    entries against one device, over the prompt and live_check.STEPS
+    single-token steps (the cell kernel at the shard-local heads), within
+    live_check.LIVE_RTOL of max|logit| (the live model's card-against-CPU
+    bar: on the H100 one other f32 order on one device moves these logits
+    0.0138 and TP 0.0108-0.0178, PERF.md); one device with every matmul
+    moved by 3e-7 shows that order's spread; the shards gathered in
+    reverse order must land past the bar."""
+    import numpy as np
+
+    from pipeinfer_tpu_torch.models import load_model
+    from pipeinfer_tpu_torch.parallel.mesh import default_devices
+    from pipeinfer_tpu_torch.parallel.tp import tp_mesh
+    from pipeinfer_tpu_torch.runtime.context import InferenceContext
+    from pipeinfer_tpu_torch.tools import live_check as LC
+
+    params, cfg = load_model(live)
+    toks = LC.live_tokens(cfg.n_vocab, SEED + 21)
+    prompt, steps = toks[:LC.PREFILL], toks[LC.PREFILL:]
+
+    def run(mesh=None):
+        ctx = InferenceContext(params, cfg, n_cells=MULTI_N_CELLS, mesh=mesh)
+        return _dcn_steps(ctx, prompt, steps)
+
+    def spread(got, want):
+        return max(float(np.abs(g - w).max()) for g, w in zip(got, want)) / scale
+
+    want = run()
+    scale = max(float(np.abs(w).max()) for w in want)
+    with LC.perturbed_matmuls():
+        order = spread(run(), want)
+    errs, launches, fault = {}, {}, {}
+    for tp in MULTI_TP:
+        devs = default_devices(tp)
+        got, launches[f"tp{tp}"] = _counted(counters, lambda: run(tp_mesh(devs)))
+        errs[f"tp{tp}"] = spread(got, want)
+        with _gathered_backwards():
+            fault[f"tp{tp}"] = spread(run(tp_mesh(devs)), want)
+    log(f"[multi] live {cfg.n_layers}L llama at 7B width over tp_mesh({[str(d) for d in devs]}"
+        f"[:tp]): logits against one device {errs} of max|logit| {scale:.2f} (bar "
+        f"{LC.LIVE_RTOL}); another f32 order on one device {order:.3g}; shards gathered "
+        f"backwards {fault}; launches {launches}")
+    bad = {k: v for k, v in errs.items() if not v <= LC.LIVE_RTOL}
+    if bad:
+        raise AssertionError(f"[multi] TP logits past {LC.LIVE_RTOL}: {bad}")
+    missed = [k for k, v in fault.items() if not v > LC.LIVE_RTOL]
+    if missed:
+        raise AssertionError(f"[multi] the TP bar lets the backwards gather through at {missed}")
+    for k, n in launches.items():
+        if n["i4g_matmul"] == 0 or n["cell_attention"] == 0:
+            raise AssertionError(f"[multi] the {k} context never launched i4g or cell "
+                                 f"attention: {n}")
+    del params
+    return dict(errs=errs, f32_order=order, backwards=fault, logit_scale=scale,
+                launches=launches, rtol=LC.LIVE_RTOL)
+
+
+def _multi_flagship(counters: dict, n_predict: int) -> dict:
+    """The controller over StagedInferenceContext(devices=4 entries, tp=2):
+    2 stages x 2-way TP of the 7B Q4_K target cut to DCN_DEPTH layers, the
+    5-layer draft on its own context; its stream == plain greedy, i4g and
+    cell attention launched in it; tok/s beside the controller over the
+    tp = 1 two-stage target, not gated."""
+    import numpy as np
+    import torch
+
+    from pipeinfer_tpu_torch.models import load_model
+    from pipeinfer_tpu_torch.parallel.mesh import default_devices
+    from pipeinfer_tpu_torch.parallel.stages import StagedInferenceContext
+    from pipeinfer_tpu_torch.runtime.context import InferenceContext
+    from pipeinfer_tpu_torch.sampling.samplers import SamplingParams
+    from pipeinfer_tpu_torch.spec.controller import PipeInferController
+    from pipeinfer_tpu_torch.spec.params import SpecParams
+    from pipeinfer_tpu_torch.tools.benchpair import cached_bench_pair, cut_depth
+
+    t_full, d_path = cached_bench_pair(ROOT / "build" / "bench", "7b", "Q4_K", 0.02, log=log)
+    t_path = cut_depth(t_full, t_full.with_name(f"target_d{DCN_DEPTH}.gguf"), DCN_DEPTH, log=log)
+    tparams, tcfg = load_model(t_path)
+    dparams, dcfg = load_model(d_path)
+    prompt = [1] + np.random.default_rng(SEED).integers(3, tcfg.n_vocab, 31).tolist()
+    greedy = SamplingParams(temp=0.0, penalty_repeat=1.0, penalty_last_n=0)
+    sp = SpecParams(n_draft=8, n_parallel=1, p_accept=0.1, p_split=0.9, max_inflight=4)
+    want, _ = _greedy(InferenceContext(tparams, tcfg, n_cells=MULTI_N_CELLS), prompt, n_predict)
+    devs = default_devices(4)
+    timed, launches = {}, None
+    for name, make in (
+            ("staged2_tp1", lambda: StagedInferenceContext(
+                tparams, tcfg, n_cells=MULTI_N_CELLS, devices=devs[:2])),
+            ("staged2_tp2", lambda: StagedInferenceContext(
+                tparams, tcfg, n_cells=MULTI_N_CELLS, devices=devs, tp=2))):
+        tgt = make()
+        c = PipeInferController(tgt, InferenceContext(dparams, dcfg, n_cells=MULTI_N_CELLS),
+                                greedy, sp, eos_id=-1)
+        if c.use_fused or c.use_corrected:
+            raise AssertionError(f"[multi] the {name} target engaged the fused or corrected run")
+        t1 = time.perf_counter()
+        got, counts = _counted(counters, lambda: c.generate(list(prompt), n_predict,
+                                                            ignore_eos=True))
+        timed[name] = dict(tok_s=n_predict / (time.perf_counter() - t1),
+                           acceptance=c.stats.n_accept / max(c.stats.n_drafted, 1))
+        if got != want:
+            first = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+            raise AssertionError(f"[multi] the controller over {name} differs from plain "
+                                 f"greedy at token {first}: {got[first:first + 8]} vs "
+                                 f"{want[first:first + 8]}")
+        if name == "staged2_tp2":
+            launches = counts
+            groups = [[str(d) for d in g] for g in tgt.groups]
+        del tgt, c
+    for k in ("i4g_matmul", "cell_attention"):
+        if launches[k] == 0:
+            raise AssertionError(f"[multi] the 2 x 2 controller run never launched {k}")
+    log(f"[multi] controller over 2 stages x 2-way TP ({tcfg.n_layers}L 7B target, groups "
+        f"{groups}) == plain greedy over {n_predict} tokens; launches {launches}; tok/s on "
+        f"{card_line()}: " + ", ".join(f"{k} {v['tok_s']:.1f} (acceptance "
+                                        f"{v['acceptance']:.2f})" for k, v in timed.items()))
+    del tparams, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(target=str(t_path), n_layers=tcfg.n_layers, groups=groups, n_predict=n_predict,
+                engines=timed, launches=launches)
+
+
+def _multi_tokens(n_vocab: int):
+    """The fused step's streams [dp * mb, MULTI_PF_T]: one random stream per
+    dp shard, repeated over its mb microbatches. The i4g kernel's
+    activations share one scale per slab across all rows of a call (the
+    head takes a dp shard's rows at once), so repeated rows keep each
+    row's rounding that of the stream alone, as the one-device reference
+    decodes it; the microbatches still pass the stages at different
+    phases."""
+    import numpy as np
+
+    rows = np.random.default_rng(SEED + 23).integers(3, n_vocab, (MULTI_PF["dp"], MULTI_PF_T))
+    return np.repeat(rows, MULTI_PF["mb"], axis=0).astype(np.int32)
+
+
+def _multi_pipefused(counters: dict, live: Path) -> dict:
+    """pp x tp x dp (MULTI_PF) with M microbatches over default_devices on
+    the live llama: the prompt and one decode step of every stream against
+    the port's one-device forward under the step's own roundings (its bf16
+    token table and bf16 cache) within MULTI_PF_RTOL; the distance to the
+    f32-table forward is logged. Returns the record and the step's prompt
+    logits (the multihost check's reference)."""
+    import numpy as np
+    import torch
+
+    from pipeinfer_tpu_torch.models import llama as t_llama
+    from pipeinfer_tpu_torch.models import load_model
+    from pipeinfer_tpu_torch.ops.qmatmul import dequant
+    from pipeinfer_tpu_torch.parallel import pipefused as pf
+    from pipeinfer_tpu_torch.runtime import kv_cache as KV
+
+    params, cfg = load_model(live)
+    c = MULTI_PF
+    pc = pf.PipeConfig(n_stages=c["pp"], tp=c["tp"], dp=c["dp"], n_microbatches=c["mb"])
+    mesh = pf.make_mesh(pc)
+    toks = _multi_tokens(cfg.n_vocab)
+    t = toks.shape[1]
+
+    def run():
+        stacked = pf.stack_params(params, cfg, pc, mesh)
+        cache = pf.init_cache(cfg, pc, mesh, batch=toks.shape[0], max_len=64)
+        step = pf.build_step(cfg, pc, mesh)
+        first, cache = step(stacked, cache, toks, np.arange(t, dtype=np.int32))
+        nxt, _ = step(stacked, cache, toks[:, :1], np.asarray([t], np.int32))
+        return first.cpu().numpy(), nxt.cpu().numpy()
+
+    (first, nxt), launches = _counted(counters, run)
+    rounded = dict(params, tok_embd=dequant(params["tok_embd"], torch.bfloat16).float())
+
+    dev = params["output_norm"].device
+
+    def one_device(p, dtype, stream):
+        cache = KV.create(cfg.n_layers, 64, cfg.n_kv_heads, cfg.head_dim, dtype, device=dev)
+        out = []
+        for tk, p0 in ((toks[stream], 0), (toks[stream, :1], t)):
+            n = len(tk)
+            ar = torch.arange(p0, p0 + n, dtype=torch.int32, device=dev)
+            lg, _ = t_llama.forward(p, cfg, cache, torch.tensor(tk, device=dev), ar,
+                                    torch.zeros(n, dtype=torch.int32, device=dev), ar,
+                                    torch.ones(n, dtype=torch.bool, device=dev))
+            out.append(lg.cpu().numpy())
+        return out
+
+    err = err_f32 = 0.0
+    for b in range(toks.shape[0]):
+        for got, w_r, w_f in zip((first[b], nxt[b]), one_device(rounded, torch.bfloat16, b),
+                                 one_device(params, torch.float32, b)):
+            err = max(err, float(np.abs(got - w_r).max() / np.abs(w_r).max()))
+            err_f32 = max(err_f32, float(np.abs(got - w_f).max() / np.abs(w_f).max()))
+    log(f"[multi] pipefused {c} on {mesh}: prompt T={t} and one step of {toks.shape[0]} streams "
+        f"against one device {err:.3g} of max|logit| (bar {MULTI_PF_RTOL}), against the "
+        f"f32-table f32-cache forward {err_f32:.3g}; launches {launches}")
+    if not err <= MULTI_PF_RTOL:
+        raise AssertionError(f"[multi] pipefused {err:.4g} from one device, past {MULTI_PF_RTOL}")
+    if launches["i4g_matmul"] == 0:
+        raise AssertionError("[multi] the fused step never launched i4g")
+    del params
+    return dict(config=c, prompt_t=t, streams=int(toks.shape[0]), err=err, err_f32_ref=err_f32,
+                rtol=MULTI_PF_RTOL, launches=launches), first
+
+
+def _multi_start_workers(live: Path, out_dir: Path) -> tuple[list, list[Path], list[Path]]:
+    """Start the two multihost workers on the card (gloo over localhost)."""
+    import socket
+
+    import numpy as np
+
+    from pipeinfer_tpu_torch.gguf.reader import GGUFReader
+    from pipeinfer_tpu_torch.models.config import config_from_gguf
+
+    with GGUFReader(live) as r:
+        n_vocab = config_from_gguf(r).n_vocab
+    script = out_dir / "multihost_worker.py"
+    script.write_text(MULTI_WORKER)
+    np.save(out_dir / "tokens.npy", _multi_tokens(n_vocab))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    outs = [out_dir / f"logits_{pid}.npy" for pid in range(2)]
+    logs = [out_dir / f"worker_{pid}.log" for pid in range(2)]
+    c = MULTI_PF
+    procs = []
+    for pid in range(2):
+        with open(logs[pid], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(script), str(pid), str(port), str(outs[pid]), str(live),
+                 str(out_dir / "tokens.npy"), MULTI_WORKER_DEVICE,
+                 *(str(c[k]) for k in ("pp", "tp", "dp", "mb"))],
+                stdout=f, stderr=subprocess.STDOUT, env=env))
+    return procs, outs, logs
+
+
+def _multi_join_workers(procs, logs, outs, want) -> dict:
+    """Wait for the workers (the caller kills one still running past
+    MULTI_WORKER_TIMEOUT); both must exit 0 with logits within
+    MULTI_MH_RTOL of the one-process step's."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    rcs = [p.wait(timeout=max(1.0, MULTI_WORKER_TIMEOUT - (time.perf_counter() - t0)))
+           for p in procs]
+    if rcs != [0, 0]:
+        raise AssertionError(f"[multi] multihost workers exited {rcs}:\n"
+                             + "\n".join(p.read_text()[-2000:] for p in logs))
+    errs = []
+    for out in outs:
+        got = np.load(out)
+        if got.shape != want.shape:
+            raise AssertionError(f"[multi] multihost logits {got.shape}, want {want.shape}")
+        errs.append(float(np.abs(got - want).max() / np.abs(want).max()))
+    log(f"[multi] two processes on the card over gloo, global_mesh{tuple(MULTI_PF.values())}: "
+        f"logits against one process's step {errs} of max|logit| (bar {MULTI_MH_RTOL}); "
+        + "; ".join(p.read_text().strip().splitlines()[-1] for p in logs))
+    if not all(e <= MULTI_MH_RTOL for e in errs):
+        raise AssertionError(f"[multi] multihost logits {errs} past {MULTI_MH_RTOL}")
+    return dict(errs=errs, rtol=MULTI_MH_RTOL, wait_s=time.perf_counter() - t0)
+
+
+def run_multi(counters: dict, records: dict, n_predict: int) -> dict:
+    """The multi-device phase on one card, every mesh entry on
+    default_devices (cuda:i % device_count): the kernels at shard shapes,
+    TP logits against one device, the controller over 2 stages x 2-way TP,
+    the fused pp x tp x dp step and the same step over two processes (the
+    workers start first and run while this process checks the rest)."""
+    from pipeinfer_tpu_torch.parallel.mesh import default_devices
+    from pipeinfer_tpu_torch.tools.benchpair import cached_bench_pair, cached_llama_live
+
+    t_full, _ = cached_bench_pair(ROOT / "build" / "bench", "7b", "Q4_K", 0.02, log=log)
+    live = cached_llama_live(t_full, log=log)
+    out_dir = ROOT / "chiprun_out" / "multi"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    log(f"[multi] mesh entries: {[str(d) for d in default_devices(4)]} (cuda:i % "
+        f"{__import__('torch').cuda.device_count()} cards)")
+    procs, outs, logs = _multi_start_workers(live, out_dir)
+    try:
+        details: list = []
+        check_multi_shapes(details)
+        tp = _multi_tp_logits(counters, live)
+        flagship = _multi_flagship(counters, n_predict)
+        pfr, want = _multi_pipefused(counters, live)
+        mh = _multi_join_workers(procs, logs, outs, want)
+    finally:
+        for p in procs:  # a worker left waiting in a collective
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for k, rec in records.items():
+        rec["launches_multi"] = {**{run: n[k] for run, n in tp["launches"].items()},
+                                 "staged2_tp2": flagship["launches"][k],
+                                 "pipefused": pfr["launches"][k]}
+    return dict(label="multi", shapes=details, tp_logits=tp, flagship=flagship, pipefused=pfr,
+                multihost=mh, card=card_line())
+
+
+# ---------------------------------------------------------------------------
 
 
 def share_pair_loads(pair_dir: Path) -> dict:
@@ -3354,9 +3791,9 @@ def share_pair_loads(pair_dir: Path) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="kernels,main,i8g,cli,serve,arch,tools,train,llava,chat,dcn",
+                    default="kernels,main,i8g,cli,serve,arch,tools,train,llava,chat,dcn,multi",
                     help="comma list of kernels, main, i8g, cli, serve, arch, tools, train, "
-                         "llava, chat, dcn "
+                         "llava, chat, dcn, multi "
                          "(default: all); "
                          "qmatmul runs only the i4g and i8g part of kernels, exact only the "
                          "k_major, i8 and k4 part")
@@ -3477,6 +3914,11 @@ def main() -> int:
         t0 = time.perf_counter()
         runs.append(run_dcn(counters, records, args.n_predict))
         log(f"[dcn] phase took {time.perf_counter() - t0:.1f} s")
+    if "multi" in phases:
+        t0 = time.perf_counter()
+        runs.append(run_multi(counters, records, args.n_predict))
+        runs[-1]["phase_s"] = time.perf_counter() - t0
+        log(f"[multi] phase took {runs[-1]['phase_s']:.1f} s")
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -35,6 +35,9 @@ def build_context(model_path: str, n_cells: int, cache_dtype: str = "bf16",
                   lora: list[tuple[str, float]] | None = None):
     """(InferenceContext, tokenizer or None) for a GGUF model on `device`,
     with each (adapter path, scale) of `lora` merged into its weights."""
+    from ..utils.compile_cache import enable
+
+    enable()  # the kernels' build directory (PIPEINFER_CACHE_DIR), as the JAX CLI's cache
     # LoRA deltas target the SPLIT projection slots: apply before fusing
     params, cfg = load_model(model_path, device=device, fuse=False if lora else None)
     if lora:

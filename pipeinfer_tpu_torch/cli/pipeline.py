@@ -6,8 +6,9 @@ ranks.
 
 Port of pipeinfer_tpu.cli.pipeline. The stages share the one device of
 `--device` (cuda unless asked for the CPU), as the JAX package's stages
-do when it has fewer devices than stages; placing them on several cards
-is not ported (ROADMAP.md queue 1, "Multi-device")."""
+do when it has fewer devices than stages. Stages on several cards, and
+tensor-parallel stages, are StagedInferenceContext(devices=..., tp=...)
+from Python: the JAX package's CLIs expose neither."""
 
 from __future__ import annotations
 
@@ -34,6 +35,9 @@ def build_staged_context(model_path: str, n_cells: int, cache_dtype: str, n_stag
                          split: list[float] | None, device="cuda"):
     """(StagedInferenceContext of n_stages stages on `device`, tokenizer)
     for a GGUF model."""
+    from ..utils.compile_cache import enable
+
+    enable()  # the kernels' build directory (PIPEINFER_CACHE_DIR), as the JAX CLI's cache
     params, cfg = load_model(model_path, device=device)
     with GGUFReader(model_path) as r:
         tok = tokenizer_from_gguf(r)

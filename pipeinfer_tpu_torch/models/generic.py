@@ -18,9 +18,11 @@ build_refact :4540, build_bloom :4632, build_mpt :4727, build_stablelm
 - gated SiLU (llama family), exact-erf GELU or relu-squared FFN, with
   biases.
 
-The JAX package's tensor-parallel branches (``tp_axis``) are not ported:
-the port runs on one device. The cache is updated in place, as in
-models/llama.py.
+Under tensor parallelism (parallel/tp.py) ``layer_step_tp`` runs the same
+body over a mesh's local shards, each with a shard-local config (heads
+divided by tp) and output-sharded weights, and re-assembles the
+activations with tiled all-gathers where the JAX package's ``tp_axis``
+branches do. The cache is updated in place, as in models/llama.py.
 """
 
 from __future__ import annotations
@@ -42,24 +44,30 @@ def _norm(x, w, b, cfg: ModelConfig):
     return L.layer_norm(x, w, b, cfg.norm_eps)
 
 
-def slopes_for(cfg: ModelConfig, device: torch.device) -> torch.Tensor | None:
+def slopes_for(cfg: ModelConfig, device: torch.device, tp: int = 1,
+               shard: int = 0) -> torch.Tensor | None:
     """The ALiBi slopes [H] on `device`, or None for a model without ALiBi.
-    Made once per (heads, bias, device): a fresh upload from host memory
-    each step would wait for the work queued before it."""
+    Under tp-way tensor parallelism cfg is shard-local and the slopes are
+    shard `shard`'s block of the tp * H global heads' (the JAX package's
+    dynamic_slice of the full table, models/staged.py:62-70). Made once
+    per (heads, bias, shard, device): a fresh upload from host memory each
+    step would wait for the work queued before it."""
     if cfg.max_alibi_bias <= 0:
         return None
-    return _slopes(cfg.n_heads, cfg.max_alibi_bias, str(device))
+    return _slopes(cfg.n_heads, cfg.max_alibi_bias, tp, shard, str(device))
 
 
-@functools.lru_cache(maxsize=16)
-def _slopes(n_heads: int, max_bias: float, device: str) -> torch.Tensor:
-    return kv.alibi_slopes(n_heads, max_bias, device=device)
+@functools.lru_cache(maxsize=64)
+def _slopes(n_heads: int, max_bias: float, tp: int, shard: int, device: str) -> torch.Tensor:
+    full = kv.alibi_slopes(n_heads * tp, max_bias, device=device)
+    return full[shard * n_heads: (shard + 1) * n_heads].contiguous()
 
 
-def layer_step(h, lp, li, cfg: ModelConfig, cache: kv.KVCache, cell_idx, mask, pos, seq, valid,
+def _attention(h, lp, li, cfg: ModelConfig, cache: kv.KVCache, cell_idx, mask, pos, seq, valid,
                rope_kw, slopes):
-    """One decoder layer on hidden h [T, E]: the trait-driven body shared
-    by the single-device forward and the staged pipeline. Returns h."""
+    """A layer's attention up to its output projection, on hidden h [T, E]:
+    (the attention norm's output [T, E], the attention [T, H * D] over the
+    heads of cfg)."""
     t = h.shape[0]
     kv_dim = cfg.n_kv_heads * cfg.head_dim
 
@@ -95,7 +103,16 @@ def layer_step(h, lp, li, cfg: ModelConfig, cache: kv.KVCache, cell_idx, mask, p
 
     kv.write_tokens(cache, li, cell_idx, k, v)
     attn = kv.attend(q, cache, li, mask, pos, seq, valid, scale=cfg.attn_scale, alibi=slopes)
-    attn_out = linear(attn.reshape(t, cfg.n_heads * cfg.head_dim), lp["wo"], lp.get("bo"))
+    return attn_norm_out, attn.reshape(t, cfg.n_heads * cfg.head_dim)
+
+
+def layer_step(h, lp, li, cfg: ModelConfig, cache: kv.KVCache, cell_idx, mask, pos, seq, valid,
+               rope_kw, slopes):
+    """One decoder layer on hidden h [T, E]: the trait-driven body shared
+    by the single-device forward and the staged pipeline. Returns h."""
+    attn_norm_out, attn = _attention(h, lp, li, cfg, cache, cell_idx, mask, pos, seq, valid,
+                                     rope_kw, slopes)
+    attn_out = linear(attn, lp["wo"], lp.get("bo"))
 
     if cfg.parallel_residual:
         # falcon: the FFN reads the attention norm's output; both add to the input
@@ -103,6 +120,36 @@ def layer_step(h, lp, li, cfg: ModelConfig, cache: kv.KVCache, cell_idx, mask, p
     h = h + attn_out
     f_in = _norm(h, lp["ffn_norm"], lp.get("ffn_norm_b"), cfg)
     return h + _ffn(f_in, lp, cfg)
+
+
+def layer_step_tp(hs: list, lps: list, li, cfg: ModelConfig, caches: list, ins: list, rope_kw,
+                  slopes: list, mesh) -> list:
+    """layer_step over the local shards of `mesh`'s 'model' axis (the JAX
+    package's tp_axis branches, pipeinfer_tpu/models/generic.py:102-108
+    and :190-194). cfg is shard-local; per shard: hidden hs[i] [T, E]
+    (replicated), layer weights lps[i] (every weight output-sharded),
+    cache slab caches[i] (its heads), ins[i] = (cell_idx, mask, pos, seq,
+    valid) and slopes[i]. The attention and the FFN's middle are gathered
+    before their output-sharded projections and the projections after
+    them. Returns the new hidden states, one per shard."""
+    def gathered(xs):
+        return mesh.all_gather(xs, "model", dim=1)
+
+    parts = [_attention(h, lp, li, cfg, c, *i, rope_kw, s)
+             for h, lp, c, i, s in zip(hs, lps, caches, ins, slopes)]
+    attn = gathered([a for _, a in parts])
+    attn_out = gathered([linear(a, lp["wo"], lp.get("bo")) for a, lp in zip(attn, lps)])
+
+    def ffn(xs):
+        mid = gathered([_ffn_mid(x, lp, cfg) for x, lp in zip(xs, lps)])
+        return gathered([linear(m, lp["w_down"], lp.get("b_down")) for m, lp in zip(mid, lps)])
+
+    if cfg.parallel_residual:
+        f = ffn([n for n, _ in parts])
+        return [h + a + x for h, a, x in zip(hs, attn_out, f)]
+    hs = [h + a for h, a in zip(hs, attn_out)]
+    f = ffn([_norm(h, lp["ffn_norm"], lp.get("ffn_norm_b"), cfg) for h, lp in zip(hs, lps)])
+    return [h + x for h, x in zip(hs, f)]
 
 
 def forward(
@@ -130,7 +177,13 @@ def forward(
 def _ffn(x, lp, cfg: ModelConfig):
     """ref: llm_build_ffn (llama.cpp:3637-3700): gated SiLU, sequential
     exact-erf GELU, or relu-squared (persimmon LLM_FFN_RELU_SQR)."""
-    if "wgu" in lp:  # load-time fused gate+up (one kernel call)
+    return linear(_ffn_mid(x, lp, cfg), lp["w_down"], lp.get("b_down"))
+
+
+def _ffn_mid(x, lp, cfg: ModelConfig):
+    """The FFN up to w_down: the activation of the up projection."""
+    if "wgu" in lp:  # load-time fused gate+up (one kernel call); split at
+        #              the actual half-width: a TP shard's wgu is 2*n_ff/tp wide
         gu = linear(x, lp["wgu"])
         half = gu.shape[1] // 2
         mid = L.silu(gu[:, :half]) * gu[:, half:]
@@ -143,4 +196,4 @@ def _ffn(x, lp, cfg: ModelConfig):
             mid = (r * r).to(up.dtype)
         else:
             mid = F.gelu(up.float(), approximate="none").to(up.dtype)
-    return linear(mid, lp["w_down"], lp.get("b_down"))
+    return mid

@@ -51,6 +51,7 @@ I4G_SLAB = 256  # K rows per nibble-packed slab (two 128-row half-slabs)
 I4G_HALF = I4G_SLAB // 2
 K4_GROUP = 32  # rows of a k4 plane sharing one scale row
 LAYOUTS = ("k_major", "n_major", "i8", "k4", "i8g", "i4g")
+PLANES = ("qs", "qh", "scales", "bias", "scales2", "bias2")  # QuantTensor's tensor fields
 
 
 @dataclasses.dataclass

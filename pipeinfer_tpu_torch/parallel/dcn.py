@@ -58,8 +58,8 @@ import torch
 from ..device import resolve
 from ..models import staged
 from ..runtime import kv_cache as kv
-from ..runtime.context import (AsyncHandle, Batch, _bucket, _params_to, apply_seq_op, h2d,
-                               pack_batch, to_host_async, unpack_sparse)
+from ..runtime.context import (AsyncHandle, Batch, CellContext, _bucket, _params_to, apply_seq_op,
+                               h2d, pack_batch, to_host_async, unpack_sparse)
 from .stages import StagedInferenceContext, split_ranges
 
 LOOPBACK = ("localhost", "127.0.0.1", "::1")
@@ -596,6 +596,10 @@ class RemoteStagedContext(StagedInferenceContext):
     @property
     def n_stages(self) -> int:
         return len(self.ranges)
+
+    # warms what _dispatch runs here: stage 0 (the stages' own precompile
+    # warms every stage of a pipeline held in this process)
+    precompile = CellContext.precompile
 
     # -- plumbing ------------------------------------------------------------
 

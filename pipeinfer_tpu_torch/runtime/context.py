@@ -30,7 +30,7 @@ import torch
 
 from ..device import resolve
 from ..models.config import ModelConfig
-from ..ops.qmatmul import QuantTensor
+from ..ops.qmatmul import PLANES, QuantTensor
 from ..sampling.samplers import SparseLogits
 from . import kv_cache as kv
 
@@ -179,17 +179,20 @@ def pack_batch(batch: Batch, t_pad: int, trash_cell: int, cells: np.ndarray):
 
 
 def _params_to(params, device: torch.device):
-    """Params with every tensor on `device` (no copy when already there)."""
+    """Params (dicts, lists and tuples of tensors, numpy arrays and
+    QuantTensors, every plane) with every tensor on `device` (no copy when
+    already there)."""
     if isinstance(params, QuantTensor):
         return dataclasses.replace(params, **{
-            f: getattr(params, f).to(device)
-            for f in ("qs", "qh", "scales", "bias") if getattr(params, f) is not None})
+            f: getattr(params, f).to(device) for f in PLANES if getattr(params, f) is not None})
+    if isinstance(params, np.ndarray):
+        return torch.from_numpy(params).to(device)
     if isinstance(params, torch.Tensor):
         return params.to(device)
     if isinstance(params, dict):
         return {k: _params_to(v, device) for k, v in params.items()}
-    if isinstance(params, list):
-        return [_params_to(v, device) for v in params]
+    if isinstance(params, (list, tuple)):
+        return type(params)(_params_to(v, device) for v in params)
     return params
 
 
@@ -249,6 +252,11 @@ class CellContext:
     parallel.stages.StagedInferenceContext: one slab per pipeline stage)."""
 
     caches: tuple | list  # the KV-cache slabs, each on its own device
+    mesh = None  # the tensor-parallel mesh of an InferenceContext; None on one device
+    # complete every handle before decode_async returns: a step that ends in
+    # a collective across processes (each process runs its own controller,
+    # whose decisions must not depend on timing)
+    _blocking = False
 
     def _init_cells(self, n_cells: int):
         """The host mirrors for n_cells (the last cell is the padding trash
@@ -339,7 +347,7 @@ class CellContext:
         self._refresh_hot()
 
         out = self._dispatch((tokens, pos, seq, cell_idx, valid, seq_bits), topk)[:n]
-        host, event = to_host_async(out)
+        host, event = (out.cpu(), None) if self._blocking else to_host_async(out)
 
         def decode(_n=n, _t0=t0, _isdecode=(n <= 2), _topk=topk):
             arr = host.numpy()
@@ -456,7 +464,8 @@ class CellContext:
 
 
 class InferenceContext(CellContext):
-    """Single-model decode engine over one device."""
+    """Single-model decode engine over one device, or tensor-parallel over
+    a mesh's 'model' axis."""
 
     def __init__(
         self,
@@ -467,25 +476,56 @@ class InferenceContext(CellContext):
         forward_fn: Callable | None = None,
         cache_dtype=torch.bfloat16,
         device=None,
+        mesh=None,
     ):
         """device: where params and cache live (default ``cuda``; raises
         without CUDA unless ``device="cpu"``). Params already there are
-        not copied."""
+        not copied.
+
+        mesh: a 1-axis 'model' mesh (parallel.tp.tp_mesh); weights and KV
+        are then tensor-sharded across it (parallel/tp.py), ``params`` is
+        the list of local shards' trees, ``caches`` their cache slabs, and
+        ``device`` the first local shard's, where results land. A mesh
+        whose axis crosses processes runs one such context per process
+        (multi-controller SPMD): its steps end in collectives, so a
+        handle is complete when decode_async returns and every process's
+        controller sees the same readiness."""
         from ..models.loader import forward_for_arch
 
-        self.device = resolve(device)
         self.cfg = cfg
+        self.mesh = mesh
         n_cells = kv.round_pool(n_cells)
         self.n_cells = n_cells
         self._forward = forward_fn or forward_for_arch(cfg.arch)
-        self.params = _params_to(params, self.device)
-        self.cache = kv.create(cfg.n_layers, n_cells, cfg.n_kv_heads, cfg.head_dim,
-                               cache_dtype, device=self.device)
+        if mesh is None:
+            self.device = resolve(device)
+            self.params = _params_to(params, self.device)
+            self._caches = (kv.create(cfg.n_layers, n_cells, cfg.n_kv_heads, cfg.head_dim,
+                                      cache_dtype, device=self.device),)
+        else:
+            from ..models.staged import local_cfg
+            from ..parallel import tp
+
+            local_cfg(cfg, mesh.shape["model"])  # raises for heads that do not split
+            self.device = mesh.local_devices[0]
+            self.params, _ = tp.shard_params(params, cfg, mesh)
+            self._caches = tuple(tp.shard_cache(kv.create(
+                cfg.n_layers, n_cells, cfg.n_kv_heads, cfg.head_dim, cache_dtype,
+                device=self.device), mesh))
+            self._blocking = mesh.spans_processes("model")
         self._init_cells(n_cells)
 
     @property
     def caches(self) -> tuple:
-        return (self.cache,)
+        return self._caches
+
+    @property
+    def cache(self) -> kv.KVCache:
+        """The one cache slab of a one-device context."""
+        if self.mesh is not None:
+            raise AttributeError("a tensor-parallel context keeps one cache slab per shard "
+                                 "(.caches)")
+        return self._caches[0]
 
     # -- device inputs --------------------------------------------------------
 
@@ -496,6 +536,11 @@ class InferenceContext(CellContext):
         return torch.full((n,), int(seq_id), dtype=torch.int32, device=self.device)
 
     def _step(self, tokens, pos, seq, cell_idx, valid, seq_bits, topk):
+        if self.mesh is not None:
+            from ..parallel import tp
+
+            return tp.build_tp_step(self.cfg, topk, self.mesh)(
+                self.params, self.caches, tokens, pos, seq, cell_idx, valid, seq_bits)
         logits, _ = self._forward(self.params, self.cfg, self.cache, tokens, pos, seq,
                                   cell_idx, valid, seq_bits)
         return logits if topk is None else sparse_pack(logits, topk)
@@ -511,6 +556,9 @@ class InferenceContext(CellContext):
         llava.cpp:70-90: image patches enter the pipeline as embeddings, no
         token ids). Pads to the step's bucket as the JAX package does, fills
         KV cells and returns the final row's logits (np [n_vocab])."""
+        if self.mesh is not None:
+            raise NotImplementedError("decode_embd runs on one device (the JAX package's "
+                                      "embedding path has no mesh branch either)")
         t = embd.shape[0]
         t_pad = _bucket(t)
         cells = self.find_cells(t)
@@ -533,6 +581,17 @@ class InferenceContext(CellContext):
         return logits[t - 1].cpu().numpy()
 
     # -- on-device draft chain ---------------------------------------------
+    def _chain(self, root, pos0, seq_id: int, cells: np.ndarray, samp, gen, n_cand: int):
+        """The chain's device steps into `cells` (draft_loop, or the TP
+        chain over the mesh): (tokens [depth], packs)."""
+        dcells = h2d(cells.astype(np.int32), self.device)
+        if self.mesh is None:
+            return draft_loop(self, root, pos0, seq_id, dcells, len(cells), samp, gen, n_cand)
+        from ..parallel import tp
+
+        return tp.build_tp_chain(self.cfg, len(cells), n_cand, self.mesh, samp)(
+            self.params, self.caches, root, pos0, seq_id, dcells, gen)
+
     def draft_chain(self, root_token, pos0: int, seq_id: int, depth: int,
                     n_cand: int = 8, fetch: bool = True,
                     samp: tuple | None = None, seed: int = 0):
@@ -554,8 +613,7 @@ class InferenceContext(CellContext):
         self.h_seq[cells] = kv.host_only(seq_id)
         self._refresh_hot()
         gen = device_generator(self.device, seed) if samp is not None else None
-        toks, packs = draft_loop(self, root_token, pos0, seq_id, h2d(cells.astype(np.int32),
-                                 self.device), depth, samp, gen, n_cand)
+        toks, packs = self._chain(root_token, pos0, seq_id, cells, samp, gen, n_cand)
         cols = [toks.float()[:, None]] + ([packs] if n_cand else [])
         out = torch.cat(cols, dim=1)
         root_next = toks[-1]
@@ -574,19 +632,25 @@ class InferenceContext(CellContext):
         """CellContext.precompile's steps, then each draft-chain depth once,
         on the trash cell (its metadata restored after)."""
         took = super().precompile(buckets=buckets, topk=topk)
-        d = self.device
         for depth in chain_depths:
             t0 = time.perf_counter()
-            draft_loop(self, 0, 0, 1, h2d(np.full(depth, self.trash_cell, np.int32), d),
-                       depth, None, None, n_cand)
-            self.cache.pos[self.trash_cell] = -1
-            self.cache.seq[self.trash_cell] = 0
+            self._chain(0, 0, 1, np.full(depth, self.trash_cell, np.int32), None, None, n_cand)
+            for c in self.caches:  # every shard's slab
+                c.pos[self.trash_cell] = -1
+                c.seq[self.trash_cell] = 0
             self._sync()
             took[f"chain[{depth}]"] = time.perf_counter() - t0
         if log is not None:
             for k, v in took.items():
                 log(f"warm {k}: {v:.2f}s")
         return took
+
+
+def single_device(*ctxs) -> bool:
+    """Whether every context is a one-device InferenceContext: what the
+    device-verified engines need (the JAX package's `mesh is None` gates).
+    A tensor-parallel target is verified on the host instead."""
+    return all(isinstance(c, InferenceContext) and c.mesh is None for c in ctxs)
 
 
 def device_generator(device: torch.device, seed: int) -> torch.Generator:
@@ -621,24 +685,35 @@ def _device_draft_sample(rows: torch.Tensor, samp: tuple, gen: torch.Generator) 
 
 def draft_loop(ctx: InferenceContext, root, pos0, seq_id: int, cells: torch.Tensor,
                depth: int, samp: tuple | None, gen, n_cand: int | None = None):
-    """Decode `depth` draft steps on `ctx`, each from the previous step's
-    token, with no host round trip: the counterpart of the JAX package's
-    lax.scan chains (_shared_chain, the draft half of the fused and
-    corrected runs). root / pos0 are host ints or device i32 scalars; step
-    i decodes at pos0 + i into cells[i].
+    """Decode `depth` draft steps on the one-device context `ctx`, each
+    from the previous step's token, with no host round trip: the
+    counterpart of the JAX package's lax.scan chains (_shared_chain, the
+    draft half of the fused and corrected runs). See chain_loop."""
+    def logits(tok, pos, seq, cell, one):
+        return ctx._forward(ctx.params, ctx.cfg, ctx.cache, tok, pos, seq, cell, one, None)[0]
+
+    return chain_loop(logits, ctx.device, root, pos0, seq_id, cells, depth, samp, gen, n_cand)
+
+
+def chain_loop(logits_fn: Callable, dev: torch.device, root, pos0, seq_id: int,
+               cells: torch.Tensor, depth: int, samp: tuple | None, gen,
+               n_cand: int | None = None):
+    """`depth` single-token decode steps, each from the previous step's
+    token: logits_fn(tok, pos, seq, cell, valid) -> logits [1, V] decodes
+    one token (on `dev`, or replicated from there by a TP step). root /
+    pos0 are host ints or device i32 scalars; step i decodes at pos0 + i
+    into cells[i].
 
     Returns (tokens int32 [depth], packs): packs is None when n_cand is
     None (draft halves of fused runs), else the per-step candidate pack
     [depth, 2*n_cand+1] (empty for n_cand == 0, the bare greedy chain)."""
-    dev = ctx.device
     tok = dev_scalar(root, dev).reshape(1)
     pos = dev_scalar(pos0, dev).reshape(1)
-    seq = ctx._seq_ids(seq_id, 1)
-    one = ctx._ones(1)
+    seq = torch.full((1,), int(seq_id), dtype=torch.int32, device=dev)
+    one = torch.ones(1, dtype=torch.bool, device=dev)
     toks, packs = [], []
     for i in range(depth):
-        logits, _ = ctx._forward(ctx.params, ctx.cfg, ctx.cache, tok, pos + i, seq,
-                                 cells[i: i + 1], one, None)
+        logits = logits_fn(tok, pos + i, seq, cells[i: i + 1], one)
         if n_cand:
             pack = sparse_pack(logits, n_cand)
             packs.append(pack)

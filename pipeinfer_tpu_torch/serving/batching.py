@@ -21,7 +21,7 @@ import threading
 from typing import Callable, Optional
 
 
-from ..runtime.context import Batch, InferenceContext
+from ..runtime.context import Batch, InferenceContext, single_device
 from ..sampling.samplers import SamplerState, SamplingParams, sample, top_probs
 
 @dataclasses.dataclass
@@ -318,8 +318,7 @@ class SpecBatchScheduler:
         lane_slots = 0
         # the device lanes need one-device contexts, tested as
         # spec/corrected.py::supported tests them
-        if device_lanes > 0 and isinstance(ctx, InferenceContext) \
-                and isinstance(ctx_dft, InferenceContext):
+        if device_lanes > 0 and single_device(ctx, ctx_dft):
             from ..spec.device_multi import DeviceLoopServer
 
             dsamp = device_sampling or SamplingParams(

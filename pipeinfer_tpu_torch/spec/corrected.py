@@ -31,7 +31,7 @@ import torch
 
 from ..runtime import kv_cache as kv
 from ..runtime.context import (AsyncHandle, InferenceContext, _device_draft_sample,
-                               device_generator, dev_scalar, h2d, sparse_pack,
+                               device_generator, dev_scalar, h2d, single_device, sparse_pack,
                                to_host_async, unpack_sparse)
 
 
@@ -48,8 +48,7 @@ def supported(ctrl) -> bool:
         and ctrl.topk is not None
         and ctrl.sampler.grammar is None
         and device_loop.supported(ctrl.sampling)
-        and isinstance(ctrl.tgt, InferenceContext)
-        and isinstance(ctrl.dft, InferenceContext)
+        and single_device(ctrl.tgt, ctrl.dft)
     )
 
 

@@ -37,7 +37,7 @@ import torch
 
 from ..runtime import kv_cache as kv
 from ..runtime.context import (AsyncHandle, Batch, CacheFull, InferenceContext, dev_scalar,
-                               device_generator, h2d, to_host_async)
+                               device_generator, h2d, single_device, to_host_async)
 from . import corrected
 from .params import SpecParams, entropy_seed
 from .sync_spec import SpecStats
@@ -78,7 +78,7 @@ def check_engine_args(name: str, ctx_tgt, ctx_dft, sampling, fallback: str) -> N
     """The device engines' shared refusal: one-device InferenceContexts
     (as spec/corrected.py::supported tests them) and a sampler chain the
     device verifier expresses."""
-    if not (isinstance(ctx_tgt, InferenceContext) and isinstance(ctx_dft, InferenceContext)):
+    if not single_device(ctx_tgt, ctx_dft):
         raise ValueError(f"{name} needs single-device contexts")
     if not supported(sampling):
         raise ValueError(f"sampler chain needs host verification; use {fallback}")

@@ -26,7 +26,7 @@ import torch
 
 from ..runtime import kv_cache as kv
 from ..runtime.context import (AsyncHandle, InferenceContext, device_generator, fused_spec, h2d,
-                               to_host_async, unpack_sparse)
+                               single_device, to_host_async, unpack_sparse)
 
 
 def supported(ctrl) -> bool:
@@ -44,8 +44,7 @@ def supported(ctrl) -> bool:
         and ctrl.topk is not None
         and ctrl.sampler.grammar is None
         and no_penalties
-        and isinstance(ctrl.tgt, InferenceContext)
-        and isinstance(ctrl.dft, InferenceContext)
+        and single_device(ctrl.tgt, ctrl.dft)
     )
 
 

@@ -42,6 +42,8 @@ from pipeinfer_tpu_torch.gguf.constants import GGMLQuantType as TQ
 from pipeinfer_tpu_torch.gguf.reader import GGUFReader as TReader
 from pipeinfer_tpu_torch.models import loader as t_loader
 from pipeinfer_tpu_torch.parallel.stages import StagedInferenceContext
+from pipeinfer_tpu_torch.runtime.context import InferenceContext
+from pipeinfer_tpu_torch.sampling.samplers import SamplerState, SamplingParams
 from pipeinfer_tpu_torch.tokenizer import tokenizer_from_gguf as t_tokenizer
 from pipeinfer_tpu_torch.tokenizer.stream import StreamDecoder as TStream
 from pipeinfer_tpu_torch.tools import testmodel
@@ -62,7 +64,6 @@ SPEC_CASES = {
     "device_loop": ["--engine", "device-loop", "-np", "1", "--draft", "6"],
     "auto_np1": ["--engine", "auto", "-np", "1", "--draft", "6"],  # auto picks the device loop
 }
-MULTI_DEVICE = 'ROADMAP.md queue 1, "Multi-device"'
 # the staged pipeline's and lookahead's CLIs: (JAX entry, port entry, extra argv)
 STAGED_CASES = {
     "pipeline_2": (j_pipeline.main, t_pipeline.main, ["--layer-split", "0.5,0.5"]),
@@ -268,13 +269,20 @@ def test_main_prompt_cache_ignores_another_prompt_or_shape(pair, tmp_path, monke
     assert got == plain and "prompt-cache ignored" in err and "shape mismatch" in err
 
 
-def test_speculative_refuses_unported_engines(pair):
-    """Never another engine behind the user's back: tensor-parallel stages
-    (tp > 1) raise, naming their ROADMAP.md item."""
+def test_tensor_parallel_stages_generate_as_one_device(pair):
+    """2 stages x 2-way TP (StagedInferenceContext(tp=2), which the CLIs do
+    not expose, as the JAX package's do not) generate through cli.main's
+    generate loop the tokens one device generates on the nano pair."""
     params, cfg = t_loader.load_model(pair[0], device="cpu")
-    with pytest.raises(NotImplementedError) as e:
-        StagedInferenceContext(params, cfg, n_cells=256, devices=["cpu"] * 2, tp=2)
-    assert MULTI_DEVICE in str(e.value) and "tp=2" in str(e.value)
+    with TReader(pair[0]) as r:
+        ids = t_tokenizer(r).encode(PROMPT, add_bos=True)
+    out = []
+    for ctx in (InferenceContext(params, cfg, n_cells=256, device="cpu"),
+                StagedInferenceContext(params, cfg, n_cells=256, devices=["cpu"] * 4, tp=2)):
+        sampler = SamplerState(params=SamplingParams(temp=0.0, penalty_repeat=1.0,
+                                                     penalty_last_n=0))
+        out.append(t_main.generate(ctx, None, sampler, ids, 24, ignore_eos=True))
+    assert out[0] == out[1] and len(out[0]) == 24
 
 
 @pytest.mark.parametrize("case", list(STAGED_CASES))

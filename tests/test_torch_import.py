@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: importing every module of
 pipeinfer_tpu_torch (the CLIs, the tokenizer and the training tools
 included, the image path: models.clip, cli.llava, tools.convert_clip, the
-cross-process pipeline parallel.dcn and the file tools) loads neither jax,
+cross-process pipeline parallel.dcn, the file tools and the multi-device
+modules parallel.mesh, tp, pipefused, multihost and utils.compile_cache)
+loads neither jax,
 optax, ml_dtypes nor pipeinfer_tpu, nor the `regex`
 package (which only a BPE vocabulary needs), chip_smoke.py imports none of
 them, and the entry points refuse to fall back to the CPU."""
@@ -50,7 +52,8 @@ def test_import_leaves_jax_and_reference_out():
                 "cli.llava", "cli.infill", "tools.convert_clip", "utils.rundump",
                 "utils.logging", "parallel.dcn", "tools.convert_hf", "tools.convert_llama2c",
                 "tools.gguf_dump", "tools.tokenize", "tools.json_schema", "tools.preset",
-                "tools.results", "tools.quantize_stats"):
+                "tools.results", "tools.quantize_stats", "parallel.mesh", "parallel.tp",
+                "parallel.pipefused", "parallel.multihost", "utils.compile_cache"):
         assert f"pipeinfer_tpu_torch.{mod}" in res["modules"]
 
 
@@ -81,3 +84,18 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         device.resolve("cuda")
     assert device.resolve("cpu") == torch.device("cpu")
+
+
+def test_a_mesh_that_names_cuda_needs_cuda(monkeypatch):
+    """A mesh resolves its devices as every entry point does: without
+    CUDA, naming cuda (or the default devices) raises."""
+    from pipeinfer_tpu_torch.parallel import mesh, pipefused, tp
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tp.tp_mesh(["cuda:0"] * 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.default_devices(4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pipefused.make_mesh(pipefused.PipeConfig(n_stages=2, tp=1, dp=1))
+    assert tp.tp_mesh(["cpu"] * 2).local_devices == [torch.device("cpu")] * 2

@@ -5,7 +5,8 @@ logits equal the JAX package's StagedInferenceContext on one CPU device,
 the PipeInfer controller over a staged target emits plain greedy decoding's
 stream (drafting with one chain dispatch per run), the seq-op surface keeps
 the stages equal to a single context, a generic architecture runs staged,
-and tp > 1 raises naming its ROADMAP.md item. Stages share one device here,
+and 2 stages x 2-way TP decode as one device does (tests/test_torch_tp.py
+holds TP stages to the JAX package's). Stages share one device here,
 as they do on one card."""
 
 import jax
@@ -281,6 +282,16 @@ def test_precompile_leaves_the_pipeline_clean(model):
                                _single(model, 64).decode(_prompt_batch()), **TOL)
 
 
-def test_tensor_parallel_stages_raise(model):
-    with pytest.raises(NotImplementedError, match='ROADMAP.md queue 1, "Multi-device"'):
-        _staged(model, 2, 64, tp=2)
+def test_tensor_parallel_stages_decode_as_one_device(model):
+    """tp=2 groups four devices into 2 stages of 2 shards, each stage's
+    heads and cache split over its shards: the prompt's and the next
+    steps' logits equal a single context's."""
+    stagedc = _staged(model, 4, 64, tp=2)
+    single = _single(model, 64)
+    assert stagedc.n_stages == 2 and len(stagedc.caches) == 4
+    np.testing.assert_allclose(stagedc.decode(_prompt_batch()), single.decode(_prompt_batch()),
+                               **TOL)
+    for i, t in enumerate([5, 9]):
+        b = Batch()
+        b.add(t, len(PROMPT) + i, 0)
+        np.testing.assert_allclose(stagedc.decode(b), single.decode(b), **TOL)
