@@ -21,9 +21,29 @@ Phases, each failing the run (non-zero exit, no result line) on a miss:
    greedy decode and then PipeInferController in device-corrected greedy
    mode on the same prompt; the streams must be identical and every
    kernel's launch count over the controller run above 0;
-5. the i8g path: the same on the toy-scale Q6_K pair, where every matmul
+5. sample, on the 2-layer live llama at 7B width (testmodel.
+   build_llama_live over the 7B target, cached beside it; the engines'
+   copy with its output norm scaled by SAMPLE_LOGIT_SCALE), held by
+   tools/sample_check: the device sampler under the CLI's default chain
+   (0.8, 40, 0.95, 0.05), 65536 draws from one logits row and from 8,
+   against top_probs by a chi-square (p >= 1e-3, nothing outside the kept
+   set), each of sample_check.SAMPLER_FAULTS failing it on the 8 rows;
+   cli.speculative with no sampling flags (penalties on, -np 3) printing
+   cli.main's text for -s 1234, and a fused stochastic controller (-np 1,
+   no penalties, device_verify off) against plain sampled decoding, where
+   a stream that parts must be explained by the verify rows' CDF shift
+   (sample_check.part_report); then the corrected controller, the
+   DeviceLoopEngine and 4 BatchedDeviceLoop lanes (and, at n = 1024, the
+   fused run if it parted) at temp 0.8 against sequential target sampling
+   by the randomized PIT / KS test over a teacher-forced pass of all
+   runs, a token of each a step (D <= 1.95 / sqrt(n) at n = 2048, mean
+   entropy >= 1 bit, i4g and
+   cell attention launched), the target sampled at temp 1.0 through the
+   BatchedDeviceLoop
+   failing it, and tok/s and acceptance at temp 0.8 beside greedy;
+6. the i8g path: the same on the toy-scale Q6_K pair, where every matmul
    goes through the i8g kernel;
-6. the CLI: `cli.main` and `cli.speculative --engine controller -np 1`
+7. the CLI: `cli.main` and `cli.speculative --engine controller -np 1`
    called in process on the 7B Q4_K pair (its target cut to CLI_DEPTH
    layers: six loads of it) under PIPEINFER_WEIGHT_LAYOUT=
    k_major, then i8, then k4, must print identical text, and each
@@ -31,7 +51,7 @@ Phases, each failing the run (non-zero exit, no result line) on a miss:
    speculative run; on the toy pair under the default layout, `--engine
    sync` and the default `-np 3` print the same text as `cli.main`, and so
    does one `python -m pipeinfer_tpu_torch.cli.speculative` subprocess;
-7. serve, on the 7B Q4_K pair: i4g and i8g at the batched loops' M = 4
+8. serve, on the 7B Q4_K pair: i4g and i8g at the batched loops' M = 4
    and 36 (wqkv, w_down) and cell attention at T = 4 with its rows on
    sequence slots 60-63 (63 is the sign bit of an int32 seq word), each
    against its plain version; then the server of
@@ -46,10 +66,11 @@ Phases, each failing the run (non-zero exit, no result line) on a miss:
    `error`, both engines served, the engine thread alive; last,
    DeviceLoopEngine on the toy Q6_K pair (every matmul through i8g, as a
    Q4_K_M file's Q6_K tensors) against plain greedy.
-8. arch, on the MPT-7B pair (mosaicml/mpt-7b's widths, Q4_K with a Q6_K
-   head, ALiBi; built into build/bench/ with a 2-layer live model whose
-   attn_output and ffn_down are non-zero): i4g at M = 1, 8 and 128 over
-   each of its 4-bit tensors, i8g at M = 1 and 8 over its 50432-row head
+9. arch, on the MPT-7B pair (mosaicml/mpt-7b's widths, Q4_K with a Q6_K
+   head, ALiBi; its target as deep as its 5-layer draft; built into
+   build/bench/ with a 2-layer live model whose attn_output and ffn_down
+   are non-zero): i4g at M = 1, 8 and 128 over each of its 4-bit
+   tensors, i8g at M = 1 and 8 over its 50432-row head
    and cell attention at its heads with ALiBi over a bf16 and an f32
    cache, each against its plain version and timed; the live model
    (9-token prefill, 8 single-token steps on the cell kernel) on the card
@@ -59,11 +80,11 @@ Phases, each failing the run (non-zero exit, no result line) on a miss:
    StagedInferenceContext and LookaheadDecoder (W 15, N 5, G 15) emit one
    stream, each launching i4g, i8g and (but lookahead) cell attention, and
    the host decode loop over 1, 2 and 4 stages is timed; cli.main,
-   cli.speculative --stages 2, cli.pipeline and cli.lookahead (the target
-   cut to CLI_DEPTH layers) print one text, and so does a `python -m
+   cli.speculative --stages 2, cli.pipeline and cli.lookahead print one
+   text, and so does a `python -m
    pipeinfer_tpu_torch.cli.pipeline` subprocess; eight other
    architectures at toy width (f32 weights) on the card against the CPU.
-9. tools: i4g at M = 512 over the 7B's fused wqkv, w_down and head and
+10. tools: i4g at M = 512 over the 7B's fused wqkv, w_down and head and
    i8g at M = 512 over the toy Q6_K pair's fused gate+up and head, each
    against its plain version with the bitwise repeat and timed; on the
    full-depth 7B Q4_K target, loaded once: perplexity over two 512-token
@@ -80,7 +101,7 @@ Phases, each failing the run (non-zero exit, no result line) on a miss:
    live llama at 7B width (non-zero attn_output and ffn_down): perplexity
    at n_ctx 128 and an embedding on the card against the CPU within
    tools/live_check's bars, and each of live_check.MASK_FAULTS past them.
-10. train, on the 2-layer live llama at 7B width (finetune's dense_params
+11. train, on the 2-layer live llama at 7B width (finetune's dense_params
    of its i4g planes on the card, 667 M f32 parameters): lm_loss and its
    gradient at B = 2, T = 64 on the card against the CPU within
    live_check.TRAIN_LOSS_RTOL and TRAIN_GRAD_RTOL, one other f32 order
@@ -95,7 +116,7 @@ Phases, each failing the run (non-zero exit, no result line) on a miss:
    below the untrained model's, and cli.main -c 1024 on it. The training
    runs themselves launch no kernel (torch matmuls, as the JAX package's
    training calls no Pallas kernel).
-11. llava, at LLaVA-1.5-7B width: a random CLIP ViT-L/14-336 tower and
+12. llava, at LLaVA-1.5-7B width: a random CLIP ViT-L/14-336 tower and
    LLaVA-1.5 projector (testmodel.build_mmproj, cached in build/bench/) on
    the card against the port on the CPU for a square and a non-square
    image within tools/live_check.CLIP_RTOL, one other f32 order beside it
@@ -111,14 +132,14 @@ Phases, each failing the run (non-zero exit, no result line) on a miss:
    server with --mmproj answering image requests with that text, a
    request naming an image not sent with 400, and serve() with --mmproj
    and --draft exiting.
-12. chat, on the 7B target cut to CLI_DEPTH layers: interactive_loop's
+13. chat, on the 7B target cut to CLI_DEPTH layers: interactive_loop's
    first turn == generate, then -i, --interactive-first, --instruct,
    --chatml, --in-prefix/--in-suffix/--in-prefix-bos and a reverse prompt
    over two scripted turns, and a small pool on which _slide_if_full must
    shift; cli.main -i --color on a scripted stdin; on a copy of the
    target with FIM ids, cli.infill with --logdir and --profile (the YAML
    and a torch.profiler trace) and cli.main --fim-prefix/--fim-suffix.
-13. dcn, on the 7B target cut to DCN_DEPTH layers: the cross-process
+14. dcn, on the 7B target cut to DCN_DEPTH layers: the cross-process
    pipeline (parallel/dcn.py), launch_local_cluster starting two stage
    workers on the card and RemoteStagedContext holding stage 0 and the
    draft: over the f32 wire the prompt's and 8 steps' logits equal one
@@ -128,7 +149,7 @@ Phases, each failing the run (non-zero exit, no result line) on a miss:
    bit-equal, and the controller completes; every worker exits 0 with its
    launch line showing i4g, and the head launched i4g and cell attention;
    tok/s beside one process's controller and 3-stage target, not gated.
-14. multi, every mesh entry on parallel.mesh.default_devices (cuda:i %
+15. multi, every mesh entry on parallel.mesh.default_devices (cuda:i %
    device_count: one card repeats cuda:0): i4g at M = 1 over the 7B's
    4-bit tensors at their tp = 2 and 4 shard widths and cell attention at
    the shard-local heads (H = KVH = 16 and 8) against their plain
@@ -144,7 +165,9 @@ Phases, each failing the run (non-zero exit, no result line) on a miss:
    running that step on a global_mesh, each within MULTI_MH_RTOL of the
    one-process step.
 The main, serve and tools phases share one load of the full-depth 7B
-pair's files (share_pair_loads); every CLI loads its own.
+pair's files, the in-process CLIs of one weight layout one load of its
+target cut to CLI_DEPTH layers, and the arch phase one load of the MPT
+pair (share_pair_loads); a subprocess loads its own.
 
 The last lines printed are the card line, one JSON line with a record per
 kernel, and {"ok": true, "device": {...}}. Details of every shape go to
@@ -155,6 +178,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import hashlib
 import io
@@ -164,6 +188,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -197,7 +222,10 @@ def gpu_ms(fn, iters: int = 20, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    torch.cuda._sleep(200_000_000)  # ~0.1 s of GPU clock
+    # ~25 ms of GPU clock, several times what the host takes to queue the
+    # calls (a plain version's few hundred launches included): a run times
+    # some 800 calls, which a 0.1 s spin made 80 s of waiting
+    torch.cuda._sleep(50_000_000)
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
     for _ in range(iters):
@@ -779,10 +807,346 @@ def run_pair(label: str, scale: str, qtype_name: str, eps: float, n_predict: int
 
 
 # ---------------------------------------------------------------------------
+# sample: the sampled main path (tools/sample_check)
+# ---------------------------------------------------------------------------
+
+SAMPLE_DRAWS = 65536  # draws of each device-sampler check
+SAMPLE_ROWS = 8  # logits rows of the many-row check (spec_round samples many rows at once)
+# the checks' model: the live llama with its output norm scaled, which
+# scales its logits (std about 0.5 -> 1.5, the margin token of the head
+# from about 2.8 to 8.5): at the plain live llama's nearly flat top 40 the
+# temperature moves the chain's distribution too little for a KS test at
+# n = 2048 to see the temp-1.0 fault, and the top-p gate cuts too few
+# tokens for the window and gate faults to show
+SAMPLE_LOGIT_SCALE = 3.0
+SAMPLE_N = 256  # tokens per engine run
+SAMPLE_DEPTH = 2  # drafted tokens a round: its verify pass decodes 3 rows
+SAMPLE_SEEDS = 8  # runs per engine: 8 x 256 = 2048 tokens (BatchedDeviceLoop: 2 x 4 lanes)
+SAMPLE_SIDE_SEEDS = 4  # runs of the fused path, held by the PIT test where it parts: 1024
+SAMPLE_EXACT_N = 128  # tokens of the fused run held to plain sampled decoding
+SAMPLE_LANES = 4
+SAMPLE_N_CELLS = 1024  # >= 512: the draft steps take the cell kernel (the 4 lanes: 2048)
+SAMPLE_CLI_N = 64  # tokens of the default-flag CLI calls
+
+
+def _sample_sampler(rows) -> dict:
+    """(a) The device sampler alone on the card: SAMPLE_DRAWS draws from
+    one logits row and from SAMPLE_ROWS rows, each against top_probs by
+    the chi-square; each of sample_check.SAMPLER_FAULTS must fail it."""
+    from pipeinfer_tpu_torch.runtime.context import _device_draft_sample
+    from pipeinfer_tpu_torch.tools import sample_check as SC
+
+    res, failed = {}, []
+    samplers = {"device": _device_draft_sample,
+                **{f: SC.sampler_fault(f) for f in SC.SAMPLER_FAULTS}}
+    t0 = time.perf_counter()
+    for name, fn in samplers.items():
+        for label, r in (("one_row", rows[-1:]), (f"{rows.shape[0]}_rows", rows)):
+            out = SC.sampler_check(fn, r, SAMPLE_DRAWS, SC.CHAIN, seed=SEED)
+            res[f"{name}/{label}"] = out
+            out["passes"] = out["p"] >= SC.CHI2_MIN_P and out["outside"] == 0
+            # every fault must fail the many-row check; on one row a fault
+            # that leaves that row's kept set and weights alone cannot show
+            if (name == "device" and not out["passes"]) or (
+                    name != "device" and label != "one_row" and out["passes"]):
+                failed.append(f"{name} on {label}: p {out['p']:.3g}, outside {out['outside']}")
+    took = time.perf_counter() - t0
+    ids, probs = SC.exact(rows[-1].float().cpu().numpy(), SC.CHAIN)
+    log(f"[sample] device sampler, {SAMPLE_DRAWS} draws under {SC.CHAIN} at V = "
+        f"{rows.shape[1]} (the row keeps {len(ids)} tokens, {SC.entropy_bits(probs):.3f} bits): "
+        + "; ".join(f"{k} chi2 {v['stat']:.1f} dof {v['dof']} p {v['p']:.3g} outside "
+                    f"{v['outside']}" for k, v in res.items()) + f" ({took:.1f} s)")
+    return dict(label="sample_sampler", draws=SAMPLE_DRAWS, chain=SC.CHAIN, checks=res,
+                failed=failed, seconds=took)
+
+
+def _sample_engines(counters: dict, params, cfg, prompts: list, records: dict,
+                    with_fused: bool) -> tuple:
+    """(b) The device-sampled engines at temp 0.8 against sequential
+    target sampling by the PIT/KS test, and with_fused the host-verified
+    fused run; the temp-1.0 fault through the BatchedDeviceLoop; tok/s and
+    acceptance beside greedy."""
+    import numpy as np
+    import torch
+
+    from pipeinfer_tpu_torch.runtime.context import InferenceContext
+    from pipeinfer_tpu_torch.sampling.samplers import SamplingParams
+    from pipeinfer_tpu_torch.spec.controller import PipeInferController
+    from pipeinfer_tpu_torch.spec.device_loop import DeviceLoopEngine
+    from pipeinfer_tpu_torch.spec.device_multi import BatchedDeviceLoop
+    from pipeinfer_tpu_torch.spec.params import SpecParams
+    from pipeinfer_tpu_torch.tools import sample_check as SC
+
+    def ctx(n_cells=SAMPLE_N_CELLS):
+        return InferenceContext(params, cfg, n_cells=n_cells)
+
+    sp = SpecParams(n_draft=SAMPLE_DEPTH, n_parallel=1, p_accept=0.0, max_inflight=4)
+
+    def controller(sampling, n, **kw):
+        c = PipeInferController(ctx(), ctx(), sampling, dataclasses.replace(sp, **kw), eos_id=-1)
+        if c.use_corrected == bool(kw):
+            raise AssertionError(f"[sample] the controller took the wrong path ({kw})")
+        return [(prompts[0], c.generate(list(prompts[0]), n, ignore_eos=True))], c.stats
+
+    def device_loop(sampling, n):
+        e = DeviceLoopEngine(ctx(), ctx(), sampling, sp, eos_id=-1, rounds=4)
+        return [(prompts[0], e.generate(list(prompts[0]), n, ignore_eos=True))], e.stats
+
+    def batched(sampling, n):
+        e = BatchedDeviceLoop(ctx(2 * SAMPLE_N_CELLS), ctx(2 * SAMPLE_N_CELLS), sampling, sp,
+                              n_streams=SAMPLE_LANES, eos_id=-1, rounds=4)
+        outs = e.generate_many(prompts[:SAMPLE_LANES], n, ignore_eos=True)
+        return list(zip(prompts, outs)), types.SimpleNamespace(
+            n_accept=sum(s.stats.n_accept for s in e.streams),
+            n_drafted=sum(s.stats.n_drafted for s in e.streams))
+
+    engines = {"corrected": (controller, SAMPLE_SEEDS),
+               "device_loop": (device_loop, SAMPLE_SEEDS),
+               "batched": (batched, SAMPLE_SEEDS // SAMPLE_LANES)}
+    if with_fused:  # two runs in flight at most: fewer canceled chains to pay for
+        engines["fused"] = (lambda s, n: controller(s, n, device_verify=False, max_inflight=2),
+                            SAMPLE_SIDE_SEEDS)
+    controller(SC.chain_params(seed=0), 16)  # warm-up: allocator and library state
+
+    def pit_runs(fn, n_seeds, fault=False):
+        runs, lanes, took, acc, dr = [], [], 0.0, 0, 0
+        launches = dict.fromkeys(counters, 0)  # the engine's runs only, not the teacher pass
+        for seed in range(n_seeds):
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            with SC.target_temp_fault() if fault else contextlib.nullcontext():
+                got, st = fn(SC.chain_params(seed=SEED + seed), SAMPLE_N)
+            torch.cuda.synchronize()
+            took += time.perf_counter() - t0
+            for k, c in counters.items():
+                launches[k] += c.launches
+            acc, dr = acc + st.n_accept, dr + st.n_drafted
+            runs += got
+            lanes += range(len(got))
+        # every run teacher-forced at once, one token of each a step: a
+        # step's rows round as the engines' verify passes of a few rows do
+        rows = SC.teacher_rows(ctx(sum(len(p) + len(s) for p, s in runs) + 64), runs, step=1,
+                               topk=128)
+        rng, lane_pits = np.random.default_rng(SEED), {}
+        for lane, (_, stream), r in zip(lanes, runs, rows):
+            lane_pits.setdefault(lane, []).append(SC.pit(stream, r, SC.CHAIN, rng))
+        tokens = sum(len(s) for _, s in runs)
+        out = SC.ks_check([p for ps in lane_pits.values() for p in ps])
+        out.update(tok_s=tokens / took, acceptance=acc / max(dr, 1), n_accept=acc, n_drafted=dr,
+                   launches=launches, seeds=n_seeds)
+        if len(lane_pits) > 1:
+            out["lanes"] = {lane: SC.ks_check(ps) for lane, ps in lane_pits.items()}
+        return out
+
+    res, failed = {}, []
+    for name, (fn, n_seeds) in engines.items():
+        out = res[name] = pit_runs(fn, n_seeds)
+        lanes = out.get("lanes", {})
+        if not (out["ok"] and all(v["ok"] for v in lanes.values())
+                and (name == "fused" or out["n"] >= 2048)):
+            failed.append(f"{name}: D {out['D']:.4f} (bar {out['bar']:.4f}, n {out['n']}), "
+                          f"{out['entropy_bits']:.3f} bits, lanes "
+                          + ", ".join(f"{v['D']:.4f} / {v['bar']:.4f}" for v in lanes.values()))
+        for k in ("i4g_matmul", "cell_attention"):
+            if out["launches"][k] == 0:
+                failed.append(f"{name} never launched {k}")
+        log(f"[sample] {name:11s} temp 0.8: KS D {out['D']:.4f} (bar {out['bar']:.4f} at n "
+            f"{out['n']}), mean entropy {out['entropy_bits']:.3f} bits, {out['outside']} tokens "
+            f"outside the teacher rows' kept sets"
+            + ("; lanes " + ", ".join(f"D {v['D']:.4f} / {v['bar']:.4f}" for v in lanes.values())
+               if lanes else "")
+            + f"; {out['tok_s']:.1f} tok/s, acceptance {out['acceptance']:.3f}; launches i4g "
+            f"{out['launches']['i4g_matmul']}, cell attention {out['launches']['cell_attention']}")
+    fault = res["fault_target_temp_1"] = pit_runs(batched, SAMPLE_SEEDS // SAMPLE_LANES,
+                                                  fault=True)
+    if fault["passes_ks"]:
+        failed.append(f"the temp-1.0 fault passes the KS bar: D {fault['D']:.4f} "
+                      f"(bar {fault['bar']:.4f})")
+    log(f"[sample] batched under the temp-1.0 fault: KS D {fault['D']:.4f} (bar "
+        f"{fault['bar']:.4f} at n {fault['n']})")
+    greedy = SamplingParams(temp=0.0, penalty_repeat=1.0, penalty_last_n=0)
+    for name, fn in (("corrected", controller), ("device_loop", device_loop)):
+        t0 = time.perf_counter()
+        _, st = fn(greedy, SAMPLE_N)
+        torch.cuda.synchronize()
+        res[name]["greedy"] = dict(tok_s=SAMPLE_N / (time.perf_counter() - t0),
+                                   acceptance=st.n_accept / max(st.n_drafted, 1))
+        log(f"[sample] {name:11s} greedy: {res[name]['greedy']['tok_s']:.1f} tok/s, acceptance "
+            f"{res[name]['greedy']['acceptance']:.3f} (temp 0.8: {res[name]['tok_s']:.1f}, "
+            f"{res[name]['acceptance']:.3f})")
+    for k, rec in records.items():
+        rec["launches_sample"] = {name: v["launches"][k] for name, v in res.items()}
+    return res, failed
+
+
+def _sample_exact(counters: dict, live, params, cfg, prompt: list) -> tuple:
+    """(c) The host-verified paths, exact: the default-flag cli.speculative
+    against cli.main with one seed, and a fused stochastic controller
+    (-np 1, no penalties, device_verify off) against plain sampled
+    decoding. Where a stream parts, sample_check.part_report says whether
+    the verify rows' logits moved the draw across a CDF boundary."""
+    import numpy as np
+    import torch
+
+    from pipeinfer_tpu_torch.cli import main as cli_main
+    from pipeinfer_tpu_torch.cli import speculative as cli_spec
+    from pipeinfer_tpu_torch.runtime.context import Batch, InferenceContext
+    from pipeinfer_tpu_torch.sampling import samplers
+    from pipeinfer_tpu_torch.sampling.samplers import SamplerState
+    from pipeinfer_tpu_torch.spec import controller
+    from pipeinfer_tpu_torch.spec.controller import PipeInferController
+    from pipeinfer_tpu_torch.spec.params import SpecParams
+    from pipeinfer_tpu_torch.tools import sample_check as SC
+
+    def tokens(calls):
+        return [samplers.sample(s.copy(), row) for s, row in calls]
+
+    def compare(label, calls_a, calls_b):
+        ta, tb = tokens(calls_a), tokens(calls_b)
+        if ta == tb:
+            return dict(parted=False, draws=len(ta))
+        k = next((i for i, (a, b) in enumerate(zip(ta, tb)) if a != b), min(len(ta), len(tb)))
+        rep = SC.part_report(calls_a, calls_b, k)
+        log(f"[sample] {label}: the streams part at draw {k}: u {rep['u']:.6f}, distance to "
+            f"the nearest CDF boundary {rep['distance']:.3g}, the verify row's CDF shift "
+            f"{rep['shift']:.3g} ({'explained' if rep['explained'] else 'NOT explained'})")
+        return dict(parted=True, draws=len(ta), **rep)
+
+    res, failed = {}, []
+    argv = ["-m", str(live), "-p", CLI_PROMPT, "-n", str(SAMPLE_CLI_N), "-s", "1234"]
+    with _layout(None):
+        with SC.recorded_draws(samplers, controller) as calls_main:
+            want, t_main = _cli_text(cli_main.main, argv)
+        for c in counters.values():
+            c.launches = 0
+        err = io.StringIO()
+        with SC.recorded_draws(samplers, controller) as calls_spec:
+            got, t_spec = _cli_text(cli_spec.main, argv + ["-md", str(live)], err)
+        launches = {k: c.launches for k, c in counters.items()}
+    stats = dict(line.split("=", 1) for line in err.getvalue().splitlines()
+                 if line.startswith(("n_drafted", "n_accept")))
+    # greedy's stream (the same penalties at temp 0) parts from the sampled
+    # one at the first draw that is not the greedy pick of its row
+    not_argmax = [i for i, (t, (s, row)) in enumerate(zip(tokens(calls_main), calls_main))
+                  if t != samplers.sample(SamplerState(params=dataclasses.replace(
+                      s.params, temp=0.0), prev=list(s.prev)), row)]
+    cli = dict(chars=len(want), main_s=t_main, speculative_s=t_spec, launches=launches,
+               first_not_argmax=not_argmax[0] if not_argmax else None,
+               n_not_argmax=len(not_argmax),
+               stats={k.strip(): v.strip() for k, v in stats.items()},
+               **compare("cli default", calls_main, calls_spec))
+    res["cli_default"] = cli
+    if got != want and not cli.get("explained"):
+        failed.append(f"cli.speculative with default flags printed {got[-120:]!r}, cli.main "
+                      f"{want[-120:]!r}")
+    if not not_argmax:
+        failed.append("cli.main with default sampling drew every token as greedy would")
+    log(f"[sample] cli.main and cli.speculative, default sampling, -s 1234: "
+        f"{'the same' if got == want else 'DIFFERENT'} {len(want)} characters ({len(not_argmax)} "
+        f"of {len(calls_main)} draws not their row's argmax, the first at draw "
+        f"{cli['first_not_argmax']}); {cli['stats']}; "
+        f"{t_main:.1f} s and {t_spec:.1f} s; launches {launches}")
+
+    # the fused stochastic run against plain sampled decoding, in process
+    sampling = SC.chain_params(seed=1234)
+    n = SAMPLE_EXACT_N
+    ctx = InferenceContext(params, cfg, n_cells=SAMPLE_N_CELLS)
+    with SC.recorded_draws(samplers, controller) as calls_plain:
+        st = SamplerState(params=sampling)
+        b = Batch()
+        for i, t in enumerate(prompt):
+            st.accept(t, apply_grammar=False)
+            b.add(t, i, 0, want_logits=(i == len(prompt) - 1))
+        logits = ctx.decode(b)[-1]
+        plain = []
+        for pos in range(len(prompt), len(prompt) + n):
+            plain.append(samplers.sample(st, logits))
+            st.accept(plain[-1])
+            b = Batch()
+            b.add(plain[-1], pos, 0)
+            logits = ctx.decode(b)[0]
+    sp = SpecParams(n_draft=4, n_parallel=1, p_accept=0.0, max_inflight=3, device_verify=False)
+    for c in counters.values():
+        c.launches = 0
+    with SC.recorded_draws(samplers, controller) as calls_fused:
+        eng = PipeInferController(InferenceContext(params, cfg, n_cells=SAMPLE_N_CELLS),
+                                  InferenceContext(params, cfg, n_cells=SAMPLE_N_CELLS),
+                                  sampling, sp, eos_id=-1)
+        if not eng.use_fused or eng.use_corrected:
+            raise AssertionError("[sample] the fused host-verified path was not taken")
+        fused = eng.generate(list(prompt), n, ignore_eos=True)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    rec = dict(n=n, equal=fused == plain, n_accept=eng.stats.n_accept,
+               n_drafted=eng.stats.n_drafted, launches=launches,
+               **compare("fused stochastic", calls_plain, calls_fused))
+    res["fused"] = rec
+    if fused != plain and not rec.get("explained"):
+        failed.append("the fused stochastic run differs from plain sampled decoding and the "
+                      "verify rows do not explain it")
+    log(f"[sample] fused stochastic (-np 1, device Gumbel drafts, host verification) "
+        f"{'==' if fused == plain else '!='} plain sampled decoding over {n} tokens; "
+        f"acceptance {eng.stats.n_accept}/{eng.stats.n_drafted}; launches {launches}")
+    del ctx, eng
+    return res, failed
+
+
+def run_sample(counters: dict, records: dict) -> list:
+    """The sample phase (see the module docstring): the live llama at 7B
+    width, loaded once; the engines' copy has its output norm scaled by
+    SAMPLE_LOGIT_SCALE."""
+    import numpy as np
+    import torch
+
+    from pipeinfer_tpu_torch.models import load_model
+    from pipeinfer_tpu_torch.runtime.context import InferenceContext
+    from pipeinfer_tpu_torch.tools import sample_check as SC
+    from pipeinfer_tpu_torch.tools.benchpair import cached_bench_pair, cached_llama_live
+
+    t_path, _ = cached_bench_pair(ROOT / "build" / "bench", "7b", "Q4_K", 0.02, log=log)
+    live = cached_llama_live(t_path, log=log)
+    params, cfg = load_model(live)
+    sparams = dict(params, output_norm=params["output_norm"] * SAMPLE_LOGIT_SCALE)
+    rng = np.random.default_rng(SEED)
+    prompts = [[1] + rng.integers(3, cfg.n_vocab, 31).tolist() for _ in range(SAMPLE_LANES)]
+    rows = SC.teacher_rows(InferenceContext(sparams, cfg, n_cells=SAMPLE_N_CELLS),
+                           [(prompts[0][:-SAMPLE_ROWS], prompts[0][-SAMPLE_ROWS:])])[0]
+    own = [SC.exact(r / SAMPLE_LOGIT_SCALE) for r in rows]  # the live llama's own chain
+    log(f"[sample] live llama ({cfg.n_layers}L, n_embd {cfg.n_embd}, vocab {cfg.n_vocab}): "
+        f"its own rows' logits std {rows.std() / SAMPLE_LOGIT_SCALE:.3f}, max per row "
+        f"{', '.join(f'{m:.3f}' for m in rows.max(axis=1) / SAMPLE_LOGIT_SCALE)}, the chain "
+        f"keeping {', '.join(str(len(i)) for i, _ in own)} tokens at "
+        f"{', '.join(f'{SC.entropy_bits(p):.2f}' for _, p in own)} bits; output norm x "
+        f"{SAMPLE_LOGIT_SCALE}: std {rows.std():.3f}, max {rows.max():.3f}")
+    rows = torch.from_numpy(rows).cuda()
+    t0 = time.perf_counter()
+    runs = [_sample_sampler(rows)]
+    t1 = time.perf_counter()
+    exact_res, failed_c = _sample_exact(counters, live, sparams, cfg, prompts[0])
+    runs.append(dict(label="sample_exact", **exact_res))
+    t2 = time.perf_counter()
+    # a fused stream that parts from plain sampling is held to it by the PIT test
+    engines, failed_b = _sample_engines(counters, sparams, cfg, prompts, records,
+                                        with_fused=exact_res["fused"]["parted"])
+    log(f"[sample] the sampler {t1 - t0:.1f} s, the exact paths {t2 - t1:.1f} s, the "
+        f"engines {time.perf_counter() - t2:.1f} s")
+    runs.append(dict(label="sample_engines", n=SAMPLE_N, seeds=SAMPLE_SEEDS,
+                     logit_scale=SAMPLE_LOGIT_SCALE, engines=engines))
+    failed = runs[0]["failed"] + failed_b + failed_c
+    del params, sparams, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("[sample] " + "; ".join(failed))
+    return runs
+
+
+# ---------------------------------------------------------------------------
 # the CLI entry points
 # ---------------------------------------------------------------------------
 
-CLI_DEPTH = 8  # layers of the target in the CLI runs that load it many times (drafts keep 5)
+CLI_DEPTH = 4  # layers of the target in the CLI runs that load it many times (drafts keep 5)
 CLI_PROMPT = "Once upon a time, there was a little robot who wanted to see the sea. Every day"
 CLI_GREEDY = ["--temp", "0", "--repeat-penalty", "1.0", "--repeat-last-n", "0", "--ignore-eos",
               "-c", "1024"]
@@ -1268,6 +1632,7 @@ def _serve_checks(httpd, engine, counters: dict, n_predict: int, load_s: float) 
 
 ARCH_EPS = 0.02  # the MPT pair's draft disagreement, as for the 7B llama pair
 ARCH_CLI_N = 64  # tokens of each arch CLI call
+ARCH_DEPTH = 5  # layers of the MPT target: its draft's
 ARCH_N_CELLS = 1024
 ARCH_I4G = {  # (N, K) of every 4-bit tensor of MPT-7B
     "wqkv": (12288, 4096), "wo": (4096, 4096), "w_up": (16384, 4096), "w_down": (4096, 16384),
@@ -1729,16 +2094,15 @@ def run_arch(counters: dict, records: dict, n_predict: int) -> list:
     """The arch phase after its kernel checks: the streams, the CLIs, the
     toy architectures and the live model. Returns its run records and adds
     each kernel's launches per arch run to its record."""
-    from pipeinfer_tpu_torch.tools.benchpair import cached_mpt_pair, cut_depth
+    from pipeinfer_tpu_torch.tools.benchpair import cached_mpt_pair
 
     bench = ROOT / "build" / "bench"
-    t_path, d_path, live_path = cached_mpt_pair(bench, ARCH_EPS, log=log)
-    # the CLIs load the target five times: they take it cut to CLI_DEPTH
-    # layers (the pair's stream does not depend on its depth)
-    cli_target = cut_depth(t_path, t_path.with_name(f"target_d{CLI_DEPTH}.gguf"), CLI_DEPTH,
-                           log=log)
+    # the target is built as deep as its draft (the pair's stream does not
+    # depend on its depth): the streams and the CLIs, which load it six
+    # times, take a few seconds a load
+    t_path, d_path, live_path = cached_mpt_pair(bench, ARCH_EPS, n_layers=ARCH_DEPTH, log=log)
     runs = [run_arch_streams(counters, (t_path, d_path), n_predict),
-            run_arch_clis(counters, (cli_target, d_path), ARCH_CLI_N),
+            run_arch_clis(counters, (t_path, d_path), ARCH_CLI_N),
             run_arch_toys(counters, bench / "toy_archs"),
             run_arch_live(counters, live_path)]
     per_run = {f"{name}": row["launches"] for name, row in runs[0]["engines"].items()}
@@ -3759,21 +4123,26 @@ def run_multi(counters: dict, records: dict, n_predict: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def share_pair_loads(pair_dir: Path) -> dict:
-    """From here on, a load of the full-depth 7B bench pair's target or
-    draft (the main, serve and tools phases each load the target, the
-    first two the draft, through load_model, the server's build_context and
-    the tools' build_context) hands out the params its first load of the
-    same arguments and weight layout made, instead of reading the 4 GB file
-    again: the run keeps them on the card. Returns the memo (arguments ->
-    (params, config))."""
+def share_pair_loads(*pair_dirs: Path) -> dict:
+    """From here on, a load of a bench pair's target or draft in one of
+    pair_dirs, or of its target cut to CLI_DEPTH layers, hands out the
+    params its first load of the same arguments and weight layout made,
+    instead of reading the file again: the run keeps them on the card. The
+    7B pair's full-depth files are loaded by the main, serve and tools
+    phases (load_model, the server's and the tools' build_context), its
+    cut by the cli phase's main and speculative calls of one layout, the
+    chat phase and the tools' --prompt-cache; the MPT pair by the arch
+    phase's streams and its in-process CLIs. Returns the memo (arguments
+    -> (params, config))."""
     from pipeinfer_tpu_torch import device as port_device
     from pipeinfer_tpu_torch import models
     from pipeinfer_tpu_torch.cli import main as cli_main
+    from pipeinfer_tpu_torch.cli import pipeline as cli_pipeline
     from pipeinfer_tpu_torch.models import loader
 
     real, memo = loader.load_model, {}
-    shared = {(pair_dir / n).resolve() for n in ("target.gguf", "draft.gguf")}
+    shared = {(d / n).resolve() for d in pair_dirs
+              for n in ("target.gguf", "draft.gguf", f"target_d{CLI_DEPTH}.gguf")}
 
     def load_model(path, *, device=None, fuse=None):
         key = (Path(path).resolve(), str(port_device.resolve(device)), fuse,
@@ -3785,15 +4154,17 @@ def share_pair_loads(pair_dir: Path) -> dict:
         return memo[key]
 
     loader.load_model = models.load_model = cli_main.load_model = load_model
+    cli_pipeline.load_model = load_model
     return memo
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="kernels,main,i8g,cli,serve,arch,tools,train,llava,chat,dcn,multi",
-                    help="comma list of kernels, main, i8g, cli, serve, arch, tools, train, "
-                         "llava, chat, dcn, multi "
+                    default="kernels,main,sample,i8g,cli,serve,arch,tools,train,llava,chat,dcn,"
+                            "multi",
+                    help="comma list of kernels, main, sample, i8g, cli, serve, arch, tools, "
+                         "train, llava, chat, dcn, multi "
                          "(default: all); "
                          "qmatmul runs only the i4g and i8g part of kernels, exact only the "
                          "k_major, i8 and k4 part")
@@ -3838,31 +4209,51 @@ def main() -> int:
     records: dict = {}
     details: list = []
     runs: list = []
-    share_pair_loads(ROOT / "build" / "bench" / "7b_Q4_K_eps0.02_vocab")
-    if phases & {"kernels", "qmatmul"}:
-        phase_qmatmul(records, details)
-    if phases & {"kernels", "exact"}:
-        phase_exact(records, details)
-    if "kernels" in phases:
-        phase_attention(records, details)
+    phase_s: dict = {}
+
+    def done(phase: str, t0: float) -> float:
+        phase_s[phase] = time.perf_counter() - t0
+        log(f"[{phase}] phase took {phase_s[phase]:.1f} s")
+        return phase_s[phase]
+
+    bench = ROOT / "build" / "bench"
+    share_pair_loads(bench / "7b_Q4_K_eps0.02_vocab",
+                     bench / f"mpt7b_Q4_K_eps{ARCH_EPS}_vocab_d{ARCH_DEPTH}")
+    if phases & {"kernels", "qmatmul", "exact"}:
+        t0 = time.perf_counter()
+        if phases & {"kernels", "qmatmul"}:
+            phase_qmatmul(records, details)
+        if phases & {"kernels", "exact"}:
+            phase_exact(records, details)
+        if "kernels" in phases:
+            phase_attention(records, details)
+        done("kernels", t0)
     if "main" in phases:
+        t0 = time.perf_counter()
         runs.append(run_pair("7b_q4k", "7b", "Q4_K", 0.02, args.n_predict, counters))
         for k in ("i4g_matmul", "cell_attention"):
             if runs[-1]["launches"][k] == 0:
                 raise AssertionError(f"the 7B main path never launched {k}")
             if k in records:
                 records[k]["launches"] = runs[-1]["launches"][k]
+        done("main", t0)
+    if "sample" in phases:
+        t0 = time.perf_counter()
+        runs.extend(run_sample(counters, records))
+        done("sample", t0)
     if "i8g" in phases:
+        t0 = time.perf_counter()
         runs.append(run_pair("toy_q6k", "toy", "Q6_K", 0.02, args.n_predict, counters))
         for k in ("i8g_matmul", "cell_attention"):
             if runs[-1]["launches"][k] == 0:
                 raise AssertionError(f"the Q6_K path never launched {k}")
         if "i8g_matmul" in records:
             records["i8g_matmul"]["launches"] = runs[-1]["launches"]["i8g_matmul"]
+        done("i8g", t0)
     if "cli" in phases:
+        t0 = time.perf_counter()
         from pipeinfer_tpu_torch.tools.benchpair import cached_bench_pair, cut_depth
 
-        bench = ROOT / "build" / "bench"
         pair_7b = cached_bench_pair(bench, "7b", "Q4_K", 0.02, log=log)
         # the layouts' CLI runs load the target six times: its depth is cut
         # (the bench pair's stream does not depend on it) to keep the run short
@@ -3880,51 +4271,52 @@ def main() -> int:
         log(f"the 7B CLI printed the same text under {', '.join(texts)}")
         runs.append(run_cli_engines(cached_bench_pair(bench, "toy", "Q6_K", 0.02, log=log),
                                     args.n_predict))
+        done("cli", t0)
     if "serve" in phases:
         t0 = time.perf_counter()
         check_serve_shapes(details)
         runs.append(run_serve(counters, args.n_predict))
         for k, rec in records.items():  # launches per serve run, beside the main path's
             rec["launches_serve"] = {run: n[k] for run, n in runs[-1]["launches"].items()}
-        log(f"[serve] phase took {time.perf_counter() - t0:.1f} s")
+        done("serve", t0)
     if "arch" in phases:
         t0 = time.perf_counter()
         check_arch_shapes(records, details)
         runs.extend(run_arch(counters, records, args.n_predict))
-        log(f"[arch] phase took {time.perf_counter() - t0:.1f} s")
+        done("arch", t0)
     if "tools" in phases:
         t0 = time.perf_counter()
         check_tools_shapes(records, details)
         runs.extend(run_tools(counters, records))
-        log(f"[tools] phase took {time.perf_counter() - t0:.1f} s")
+        done("tools", t0)
     if "train" in phases:
         t0 = time.perf_counter()
         runs.extend(run_train(counters, records))
-        log(f"[train] phase took {time.perf_counter() - t0:.1f} s")
+        done("train", t0)
     if "llava" in phases:
         t0 = time.perf_counter()
         runs.extend(run_llava(counters, records))
-        log(f"[llava] phase took {time.perf_counter() - t0:.1f} s")
+        done("llava", t0)
     if "chat" in phases:
         t0 = time.perf_counter()
         runs.extend(run_chat(counters, records))
-        log(f"[chat] phase took {time.perf_counter() - t0:.1f} s")
+        done("chat", t0)
 
     if "dcn" in phases:
         t0 = time.perf_counter()
         runs.append(run_dcn(counters, records, args.n_predict))
-        log(f"[dcn] phase took {time.perf_counter() - t0:.1f} s")
+        done("dcn", t0)
     if "multi" in phases:
         t0 = time.perf_counter()
         runs.append(run_multi(counters, records, args.n_predict))
-        runs[-1]["phase_s"] = time.perf_counter() - t0
-        log(f"[multi] phase took {runs[-1]['phase_s']:.1f} s")
+        runs[-1]["phase_s"] = done("multi", t0)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         dict(card=card, torch=torch.__version__, cuda=torch.version.cuda, build_s=took,
-             kernels=details, runs=runs, total_s=time.perf_counter() - t_start), indent=1))
+             phase_s=phase_s, kernels=details, runs=runs,
+             total_s=time.perf_counter() - t_start), indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": list(records.values())}))

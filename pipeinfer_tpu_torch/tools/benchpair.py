@@ -44,18 +44,19 @@ def cached_llama_live(target: str | Path, log=print) -> Path:
 
 
 def cached_mpt_pair(cache_dir: str | Path, eps: float, scale: str = "mpt7b",
-                    log=print) -> tuple[Path, Path, Path]:
+                    n_layers: int | None = None, log=print) -> tuple[Path, Path, Path]:
     """(target, draft, live) GGUF paths of the MPT bench pair at `scale`
     (testmodel.build_mpt_bench_pair, with its synthetic vocabulary and its
-    2-layer live model) under cache_dir, built only when missing."""
-    d = Path(cache_dir) / f"{scale}_Q4_K_eps{eps}_vocab"
+    2-layer live model; the target n_layers deep, default the scale's)
+    under cache_dir, built only when missing."""
+    d = Path(cache_dir) / (f"{scale}_Q4_K_eps{eps}_vocab" + (f"_d{n_layers}" if n_layers else ""))
     paths = [d / "target.gguf", d / "draft.gguf", d / "live2.gguf"]
     if not all(p.exists() for p in paths):
         d.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
         tmps = [p.with_suffix(".tmp") for p in paths]
         testmodel.build_mpt_bench_pair(tmps[0], tmps[1], scale=scale, eps=eps, vocab=True,
-                                       live_path=tmps[2])
+                                       live_path=tmps[2], n_layers=n_layers)
         for t, p in zip(tmps, paths):
             t.replace(p)
         log(f"built the {scale} Q4_K pair (eps={eps}) and its live model in "

@@ -647,7 +647,8 @@ MPT_LIVE_LAYERS = 2
 
 def build_mpt_bench_pair(tgt_path: str | Path, dft_path: str | Path, *, scale: str = "mpt7b",
                          eps: float = 0.0, seed: int = 42, vocab: bool = False,
-                         live_path: str | Path | None = None, log=lambda *a: None):
+                         live_path: str | Path | None = None, n_layers: int | None = None,
+                         log=lambda *a: None):
     """The MPT-7B counterpart of build_bench_pair: mosaicml/mpt-7b's widths
     (MPT_SCALES["mpt7b"]; "mpt_nano" for tests), quantized as llama.cpp's Q4_K_M quantizes the head (every
     weight Q4_K, output.weight Q6_K); LayerNorm without biases, a fused
@@ -660,7 +661,9 @@ def build_mpt_bench_pair(tgt_path: str | Path, dft_path: str | Path, *, scale: s
     that LayerNorm (which subtracts the row mean) equals RMSNorm on them and
     the margin survives. The draft is the target's lower `draft_layers`
     layers, its head disagreeing with the target's on an eps share of
-    tokens. Upper layers share one template layer's weights.
+    tokens. Upper layers share one template layer's weights. n_layers cuts
+    the target to that many layers (default: the scale's, at least the
+    draft's); the pair's greedy stream does not depend on it.
 
     live_path: also write a MPT_LIVE_LAYERS-layer model of the same widths,
     embedding and head whose attn_output and ffn_down are random and
@@ -721,7 +724,9 @@ def build_mpt_bench_pair(tgt_path: str | Path, dft_path: str | Path, *, scale: s
     import time as _t
 
     t0 = _t.time()
-    n, dl = shape["n_layers"], MPT_SCALES[scale]["draft_layers"]
+    n, dl = n_layers or shape["n_layers"], MPT_SCALES[scale]["draft_layers"]
+    if n < dl:
+        raise ValueError(f"a {n}-layer target cannot hold its {dl}-layer draft")
     write(tgt_path, [draft_layer] * dl + [upper] * (n - dl), output)
     write(dft_path, [draft_layer] * dl, output_d)
     if live_path is not None:
