@@ -16,11 +16,16 @@ Phases, each failing the run (non-zero exit, no result line) on a miss:
    of their type, whichever is larger); the split-K matmuls (i4g, i8g,
    i8, k_major, k4) called twice on the same inputs must give bitwise
    equal outputs;
-4. the main path at full width: the llama-2-7B-shaped Q4_K bench pair
-   (random weights from a seed, built into build/bench/ and reused), plain
-   greedy decode and then PipeInferController in device-corrected greedy
-   mode on the same prompt; the streams must be identical and every
-   kernel's launch count over the controller run above 0;
+4. the main path at full width: first the host runtime of the model load
+   (native.py: csrc/repack.cpp built by g++ into build/native/), its
+   library's path and one Q4_K repack of the 7B's w_down shape timed
+   against the numpy repack, the planes bitwise equal; then the
+   llama-2-7B-shaped Q4_K bench pair (random weights from a seed, built
+   into build/bench/ and reused), loaded tensor by tensor (load s
+   and the load's peak GiB), plain greedy decode and then
+   PipeInferController in device-corrected greedy mode on the same
+   prompt; the streams must be identical and every kernel's launch count
+   over the controller run above 0;
 5. sample, on the 2-layer live llama at 7B width (testmodel.
    build_llama_live over the 7B target, cached beside it; the engines'
    copy with its output norm scaled by SAMPLE_LOGIT_SCALE), held by
@@ -739,6 +744,7 @@ def run_pair(label: str, scale: str, qtype_name: str, eps: float, n_predict: int
     import numpy as np
     import torch
 
+    from pipeinfer_tpu_torch import native
     from pipeinfer_tpu_torch.models import load_model
     from pipeinfer_tpu_torch.runtime.context import InferenceContext
     from pipeinfer_tpu_torch.sampling.samplers import SamplingParams
@@ -747,13 +753,17 @@ def run_pair(label: str, scale: str, qtype_name: str, eps: float, n_predict: int
     from pipeinfer_tpu_torch.tools.benchpair import cached_bench_pair
 
     t_path, d_path = cached_bench_pair(ROOT / "build" / "bench", scale, qtype_name, eps, log=log)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     tparams, tcfg = load_model(t_path)
     dparams, dcfg = load_model(d_path)
     torch.cuda.synchronize()
     t_load = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[{label}] loaded {tcfg.n_layers}L target + {dcfg.n_layers}L draft "
-        f"(n_embd {tcfg.n_embd}, n_ff {tcfg.n_ff}, vocab {tcfg.n_vocab}) in {t_load:.1f} s")
+        f"(n_embd {tcfg.n_embd}, n_ff {tcfg.n_ff}, vocab {tcfg.n_vocab}) in {t_load:.1f} s, "
+        f"peak {load_peak:.2f} GiB, repacked by {native.get_lib()._name}")
 
     rng = np.random.default_rng(SEED)
     prompt = [1] + rng.integers(3, tcfg.n_vocab, 31).tolist()
@@ -787,7 +797,7 @@ def run_pair(label: str, scale: str, qtype_name: str, eps: float, n_predict: int
                              f"{first}: {got[first:first + 8]} vs {want[first:first + 8]}")
     st, m = c.stats, c.metrics
     res = dict(label=label, scale=scale, qtype=qtype_name, eps=eps, n_predict=n_predict,
-               prompt_len=len(prompt), n_cells=n_cells, load_s=t_load,
+               prompt_len=len(prompt), n_cells=n_cells, load_s=t_load, load_peak_gib=load_peak,
                plain_tok_s=(n_predict - 1) / t_plain,
                controller_tok_s=n_predict / t_ctrl, controller_s=t_ctrl,
                mode="corrected" if c.use_corrected else ("fused" if c.use_fused else "host"),
@@ -804,6 +814,50 @@ def run_pair(label: str, scale: str, qtype_name: str, eps: float, n_predict: int
     gc.collect()
     torch.cuda.empty_cache()
     return res
+
+
+NATIVE_SHAPE = (4096, 11008)  # the 7B's w_down [N, K], Q4_K
+NATIVE_ORDER = ("numpy", "auto", "auto", "numpy")  # timed in turns; the median of each kept
+
+
+def run_native_repack() -> dict:
+    """The host half of the model load: the native runtime (native.py,
+    built by g++ into build/native/ at first use) against the numpy
+    repack on one Q4_K payload of the 7B's w_down shape (random nibbles and
+    6-bit scales, finite f16 super-block scales, from SEED), each timed on
+    this machine's host; the planes must be bitwise equal."""
+    import numpy as np
+
+    from pipeinfer_tpu_torch import native
+    from pipeinfer_tpu_torch.gguf.constants import GGMLQuantType
+    from pipeinfer_tpu_torch.quant import pack
+
+    t0 = time.perf_counter()
+    lib = native.get_lib()
+    lib_s = time.perf_counter() - t0
+    n, k = NATIVE_SHAPE
+    rng = np.random.default_rng(SEED)
+    raw = rng.integers(0, 256, (n, k // 256, 144), dtype=np.uint8)
+    d = (np.abs(rng.standard_normal((n, k // 256, 2))) * 0.01).astype(np.float16)
+    raw[..., :4] = d.view(np.uint8)
+    raw = raw.reshape(-1)
+    times: dict = {}
+    planes: dict = {}
+    for backend in NATIVE_ORDER:
+        t0 = time.perf_counter()
+        planes[backend] = pack.pack(raw, GGMLQuantType.Q4_K, (n, k), backend=backend)
+        times.setdefault(backend, []).append(time.perf_counter() - t0)
+    for f in ("qs", "scales", "bias"):
+        a, b = getattr(planes["auto"], f), getattr(planes["numpy"], f)
+        if a.dtype != b.dtype or a.shape != b.shape or a.tobytes() != b.tobytes():
+            raise AssertionError(f"[main] native repack's {f} plane differs from numpy's")
+    med = {b: float(np.median(t)) for b, t in times.items()}
+    log(f"[main] native runtime {lib._name} (ready in {lib_s:.2f} s); Q4_K repack of "
+        f"[{n}x{k}] on the host: numpy {med['numpy']:.4f} s, native {med['auto']:.4f} s "
+        f"({med['numpy'] / med['auto']:.1f}x), planes bitwise equal")
+    return dict(label="native_repack", lib=lib._name, lib_s=lib_s, shape=[n, k], qtype="Q4_K",
+                numpy_s=times["numpy"], native_s=times["auto"], numpy_median_s=med["numpy"],
+                native_median_s=med["auto"], host_cpus=os.cpu_count())
 
 
 # ---------------------------------------------------------------------------
@@ -3720,7 +3774,7 @@ import numpy as np
 import torch
 from pipeinfer_tpu_torch.models import load_model
 from pipeinfer_tpu_torch.parallel import pipefused as pf
-from pipeinfer_tpu_torch.parallel.multihost import global_mesh, init_distributed
+from pipeinfer_tpu_torch.parallel.multihost import global_mesh, init_distributed, shutdown
 pid, port, out, model = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
 tokens, device = np.load(sys.argv[5]), sys.argv[6]
 init_distributed(f"localhost:{port}", num_processes=2, process_id=pid, timeout_s=240)
@@ -3733,6 +3787,7 @@ cache = pf.init_cache(cfg, pc, mesh, batch=tokens.shape[0], max_len=64)
 logits, _ = step(pf.stack_params(params, cfg, pc, mesh), cache, tokens,
                  np.arange(tokens.shape[1], dtype=np.int32))
 np.save(out, logits.cpu().numpy())
+shutdown()
 print(f"multihost worker {pid}: {mesh}", flush=True)
 """
 
@@ -4230,12 +4285,14 @@ def main() -> int:
         done("kernels", t0)
     if "main" in phases:
         t0 = time.perf_counter()
+        repack = run_native_repack()  # first: it times the library's build at first use
         runs.append(run_pair("7b_q4k", "7b", "Q4_K", 0.02, args.n_predict, counters))
         for k in ("i4g_matmul", "cell_attention"):
             if runs[-1]["launches"][k] == 0:
                 raise AssertionError(f"the 7B main path never launched {k}")
             if k in records:
                 records[k]["launches"] = runs[-1]["launches"][k]
+        runs.append(repack)
         done("main", t0)
     if "sample" in phases:
         t0 = time.perf_counter()

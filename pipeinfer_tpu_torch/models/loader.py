@@ -2,9 +2,11 @@
 
 Torch counterpart of pipeinfer_tpu.models.loader (ref: llama.cpp:1805-1938
 `llama_model_loader`, :2684-3404 `llm_load_tensors`). Quantized 2-D weights
-are repacked on the host (quant.pack, numpy), uploaded raw, and turned into
-the kernels' device planes on the device (ops.qmatmul.to_device); small
-tensors (norms, biases) load dense in f32.
+are repacked on the host (quant.pack, the native runtime of native.py),
+uploaded raw, and turned into the kernels' device planes on the device
+(ops.qmatmul.to_device); small tensors (norms, biases) load dense in f32.
+Tensors load one after another: the native repack already runs on every
+host core, so the JAX loader's thread pool is not ported.
 """
 
 from __future__ import annotations

@@ -43,7 +43,8 @@ def init_distributed(
 
     backend: gloo on the CPU and for processes that share a card (NCCL
     refuses two ranks on one GPU); nccl only where each rank owns its own
-    card. A collective that waits longer than timeout_s raises."""
+    card. A collective that waits longer than timeout_s raises. Every
+    process calls shutdown() when it is done."""
     import torch.distributed as dist
 
     if coordinator_address is None or dist.is_initialized():
@@ -51,6 +52,22 @@ def init_distributed(
     dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
                             world_size=num_processes, rank=process_id,
                             timeout=datetime.timedelta(seconds=timeout_s))
+
+
+def shutdown() -> None:
+    """Leave the process group (the counterpart of jax.distributed's
+    shutdown, which jax runs at exit): wait at a barrier until every
+    process is done, then destroy the group. Without it a process that
+    finishes first exits while its peers still hold gloo pairs to it, and
+    the group's threads are torn down by the interpreter's exit, which
+    can abort a process ("terminate called without an active exception").
+    No-op without a process group."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 def global_devices(local_devices: Sequence | None = None) -> tuple[list[str], list[int]]:

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import native
 from ..gguf.constants import GGMLQuantType, QUANT_BLOCK_INFO, QK_K
 
 F16 = np.float16
@@ -174,7 +175,7 @@ def quantize_q8_0(x: np.ndarray) -> np.ndarray:
     amax = np.abs(xb).max(axis=1)
     d = amax / 127.0
     id_ = np.where(d != 0.0, 1.0 / np.where(d == 0, 1, d), 0.0)
-    q = _round_half_away(xb * id_[:, None]).astype(np.int8)
+    q = native.round_clip(xb * id_[:, None], -128.0, 127.0, dtype=np.int8, half_away=True)
     out = np.empty((len(xb), 34), dtype=U8)
     out[:, 0:2] = _f16_bytes(d)
     out[:, 2:34] = q.view(U8)
@@ -401,7 +402,7 @@ def _fit_affine_groups(g: np.ndarray, qmax: int, smax: int):
     M = dmin[:, None, None] * m_q.astype(np.float32)[:, :, None]
     with np.errstate(divide="ignore", invalid="ignore"):
         qv = np.where(D > 0, (g + M) / np.where(D == 0, 1, D), np.float32(0.0))
-    q = np.clip(np.round(qv), 0, qmax).astype(U8)
+    q = native.round_clip(qv, 0.0, float(qmax))
     q = q.reshape(nb, -1)
     return d, dmin, sc_q, m_q, q
 
@@ -500,7 +501,7 @@ def quantize_q6_K(x: np.ndarray) -> np.ndarray:
     D = d[:, None, None] * sc_q[:, :, None].astype(np.float32)
     with np.errstate(divide="ignore", invalid="ignore"):
         qv = np.where(np.abs(D) > 0, g / np.where(D == 0, 1, D), 0.0)
-    q = (np.clip(np.round(qv), -32, 31) + 32).astype(U8)
+    q = native.round_clip(qv + 32.0, 0.0, 63.0)  # [-32, 31] + 32 fused, as the JAX package
     q = q.reshape(nb, 256)  # [0, 63]
 
     out = np.empty((nb, 210), dtype=U8)

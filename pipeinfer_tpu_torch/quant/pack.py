@@ -25,6 +25,7 @@ import dataclasses
 
 import numpy as np
 
+from .. import native
 from ..gguf.constants import GGMLQuantType, QUANT_BLOCK_INFO, QK_K
 from .formats import _blocks, _read_f16, _unpack_scale_min_k4, _unpack_q3k_scales, _qh_to_bits
 
@@ -277,8 +278,16 @@ def _split_pack_bits1(v: np.ndarray) -> np.ndarray:
     return packed.astype(U8).reshape(n, k // 8)
 
 
-def pack(raw: np.ndarray, qtype: GGMLQuantType, shape: tuple[int, int]) -> PackedWeight:
-    """Repack a raw ggml payload for an [N, K] row-major weight (numpy)."""
+def pack(
+    raw: np.ndarray, qtype: GGMLQuantType, shape: tuple[int, int], backend: str = "auto"
+) -> PackedWeight:
+    """Repack a raw ggml payload for an [N, K] row-major weight.
+
+    backend: "auto" repacks the formats of native.NATIVE_QTYPES with the
+    native runtime (the model-load hot path; raises if it cannot be built)
+    and the others in numpy; "numpy" forces the plain version."""
+    if backend not in ("auto", "numpy"):
+        raise ValueError(f"backend {backend!r}: 'auto' or 'numpy'")
     n, k = shape
     be, bb = QUANT_BLOCK_INFO[qtype]
     if k % be != 0:
@@ -292,6 +301,9 @@ def pack(raw: np.ndarray, qtype: GGMLQuantType, shape: tuple[int, int]) -> Packe
         )
     bits, group = FORMAT_INFO[qtype]
 
+    if backend == "auto" and qtype in native.NATIVE_QTYPES:
+        qs, qh, s, bias = native.repack(np.asarray(raw, U8), qtype, n, k)
+        return PackedWeight(qtype, (n, k), qs, qh, s, bias)
     q, s, bias = _QUANTS[qtype](np.asarray(raw, dtype=U8))
     q = q.reshape(n, k)
     # scale planes come per block; reshape to [N, K/G]

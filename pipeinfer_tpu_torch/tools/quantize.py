@@ -4,11 +4,11 @@ weight tensors to the requested format (norms/embeddings rules follow the
 reference's defaults: output and token_embd may use a higher-precision
 format; 1-D tensors stay F32).
 
-Port of pipeinfer_tpu.tools.quantize: numpy on the host, as there (the
-port's quant/formats.py keeps the numpy fallbacks where the JAX package
-may call its native rounding). `--device` is resolved as by every entry
-point of the port (without CUDA, pass --device cpu); nothing here runs on
-it."""
+Port of pipeinfer_tpu.tools.quantize: numpy on the host, as there, with
+the rounding of quant/formats.py in the port's native runtime (native.py)
+where the JAX package rounds in its own, so every output file is the JAX
+package's byte for byte. `--device` is resolved as by every entry point of
+the port (without CUDA, pass --device cpu); nothing here runs on it."""
 
 from __future__ import annotations
 

@@ -2,8 +2,8 @@
 pipeinfer_tpu_torch (the CLIs, the tokenizer and the training tools
 included, the image path: models.clip, cli.llava, tools.convert_clip, the
 cross-process pipeline parallel.dcn, the file tools and the multi-device
-modules parallel.mesh, tp, pipefused, multihost and utils.compile_cache)
-loads neither jax,
+modules parallel.mesh, tp, pipefused, multihost and utils.compile_cache,
+and the native runtime's bindings) loads neither jax,
 optax, ml_dtypes nor pipeinfer_tpu, nor the `regex`
 package (which only a BPE vocabulary needs), chip_smoke.py imports none of
 them, and the entry points refuse to fall back to the CPU."""
@@ -53,7 +53,8 @@ def test_import_leaves_jax_and_reference_out():
                 "utils.logging", "parallel.dcn", "tools.convert_hf", "tools.convert_llama2c",
                 "tools.gguf_dump", "tools.tokenize", "tools.json_schema", "tools.preset",
                 "tools.results", "tools.quantize_stats", "parallel.mesh", "parallel.tp",
-                "parallel.pipefused", "parallel.multihost", "utils.compile_cache"):
+                "parallel.pipefused", "parallel.multihost", "utils.compile_cache",
+                "native"):
         assert f"pipeinfer_tpu_torch.{mod}" in res["modules"]
 
 

@@ -1,14 +1,15 @@
-"""The port's `tools.quantize` (a copy of the JAX package's, whose
-quant/formats.py keeps the numpy fallbacks) against the JAX package's on a
-tiny f32 llama, on the CPU.
+"""The port's `tools.quantize` (a copy of the JAX package's) against the
+JAX package's on a tiny f32 llama, on the CPU.
 
-Q4_K and Q8_0 (and Q4_0, Q5_K) give the JAX package's bytes. Q6_K may
-not: the JAX package rounds its 6-bit values through its native library
-(`native.round_clip(qv + 32, 0, 63)`) where the port rounds qv in numpy
-and adds 32, and the two differ on a few f32 near-ties. There the test
-reads both files back: at most 1e-3 of the values differ, each by at most
-one quantization step of its 16-value group (max|x| / 31, 5% over for the
-scales' own rounding). ROADMAP.md lists the divergence.
+Every format, Q6_K included, gives the JAX package's bytes: the port's
+quant/formats.py rounds through its own native runtime (native.py) where
+the JAX package rounds through its native library, Q6_K as
+`round_clip(qv + 32, 0, 63)`. Before the port had that runtime it rounded
+qv in numpy and added 32, which parts from the JAX package on a few f32
+near-ties; the file-level Q6_K check below, which reads both files back
+and bounds each value to one quantization step of its 16-value group
+(max|x| / 31, 5% over for the scales' own rounding) and the share of
+differing values to 1e-3, now finds none.
 """
 
 import hashlib
@@ -36,7 +37,7 @@ def _sha(path) -> str:
     return hashlib.sha256(open(path, "rb").read()).hexdigest()
 
 
-@pytest.mark.parametrize("ftype", ["q4_k", "q8_0", "q4_0", "q5_k"])
+@pytest.mark.parametrize("ftype", ["q4_k", "q8_0", "q4_0", "q5_k", "q6_k"])
 def test_quantize_gives_the_jax_packages_bytes(f32_model, tmp_path, ftype):
     j_out, t_out = tmp_path / "j.gguf", tmp_path / "t.gguf"
     jq.quantize_file(str(f32_model), str(j_out), jq.FTYPES[ftype])
