@@ -23,6 +23,7 @@ from typing import Callable, Optional
 
 from ..runtime.context import Batch, InferenceContext, single_device
 from ..sampling.samplers import SamplerState, SamplingParams, sample, top_probs
+from ..utils import trace
 
 @dataclasses.dataclass
 class Request:
@@ -295,7 +296,11 @@ class SpecBatchScheduler:
     The reference keeps speculation (examples/speculative) and continuous
     batching (examples/server slot scheduler, server.cpp:377-463;
     examples/parallel) in separate drivers; here `pipeinfer-server
-    --draft d.gguf` serves both at once and routes per request."""
+    --draft d.gguf` serves both at once and routes per request.
+
+    While utils/trace is on, each step and its parts are spans, and each
+    request is stamped under its `rid` when submitted and when the engine
+    that takes it admits it."""
 
     def __init__(
         self,
@@ -357,6 +362,9 @@ class SpecBatchScheduler:
 
     def submit(self, req: Request) -> Request:
         with self.lock:
+            req.rid = next(self._rid)
+            if trace.on:
+                trace.stamp(req.rid, "submit")
             self.queue.append(req)
         return req
 
@@ -389,7 +397,7 @@ class SpecBatchScheduler:
         # request in neither collection (lost cancel) or hit a dict
         # mutated mid-iteration. Engine submits are cheap enqueues, so
         # holding the lock across them costs nothing.
-        with self.lock:
+        with trace.span("engine.drain") if trace.on else trace.OFF, self.lock:
             self._drain_queue_locked()
 
     def _drain_queue_locked(self):
@@ -401,13 +409,13 @@ class SpecBatchScheduler:
                 if _r.stream:
                     _r.stream(t)
 
-            req.rid = next(self._rid)
             if self._route_device(req):
                 h = self.devsrv.submit(
                     req.prompt_ids,
                     req.n_predict,
                     on_token=cb,
                     ignore_eos=req.ignore_eos,
+                    rid=req.rid,
                 )
                 self._dev_live.append((h, req))
                 continue
@@ -419,6 +427,7 @@ class SpecBatchScheduler:
                 ignore_eos=req.ignore_eos,
                 grammar=req.grammar,
                 n_probs=req.n_probs,
+                rid=req.rid,
             )
             self._live[sreq.id] = req
             self._sreqs[sreq.id] = sreq
@@ -466,14 +475,16 @@ class SpecBatchScheduler:
                     return
 
     def step(self) -> int:
-        self._drain_queue()
-        progressed = self.engine.step()
-        dev_prog = 0
-        if self.devsrv is not None and self.devsrv.busy:
-            # block on the oldest device pack only when the host engine has
-            # nothing to do — otherwise poll, so neither engine starves
-            dev_prog = self.devsrv.step(block=not progressed)
-        self._drain_queue()
+        with trace.span("engine.step") if trace.on else trace.OFF:
+            self._drain_queue()
+            with trace.span("engine.host") if trace.on else trace.OFF:
+                progressed = self.engine.step()
+            dev_prog = 0
+            if self.devsrv is not None and self.devsrv.busy:
+                # block on the oldest device pack only when the host engine
+                # has nothing to do — otherwise poll, so neither engine starves
+                dev_prog = self.devsrv.step(block=not progressed)
+            self._drain_queue()
         return 1 if (progressed or dev_prog) else 0
 
     def run_until_idle(self):
@@ -503,4 +514,5 @@ class SpecBatchScheduler:
                 n = 0
             if n == 0:
                 self._drain_queue()
-                time.sleep(idle_sleep)
+                with trace.span("engine.idle") if trace.on else trace.OFF:
+                    time.sleep(idle_sleep)

@@ -38,6 +38,7 @@ import torch
 from ..runtime import kv_cache as kv
 from ..runtime.context import (AsyncHandle, Batch, CacheFull, InferenceContext, dev_scalar,
                                device_generator, h2d, single_device, to_host_async)
+from ..utils import trace
 from . import corrected
 from .params import SpecParams, entropy_seed
 from .sync_spec import SpecStats
@@ -91,22 +92,24 @@ def device_rounds(dft: InferenceContext, tgt: InferenceContext, roots, bases, se
     dcells [R, S, depth], tcells [R, S, depth+1]; roots / bases / seqs
     int32 [S]; active bool [S] or None (see corrected.spec_round).
     trim(new_bases) rolls back the rejected rows after each round (default:
-    corrected.drop_rejected, by index).
+    corrected.drop_rejected, by index). While tracing, each round is a
+    `lanes.round` span.
 
     Returns (pack int32 [R, S, depth+2], roots, bases): per round and
     stream, m accepted tokens ++ the bonus at column m ++ zeros, then m;
     the last round's (bonus, base) device vectors chain the next dispatch."""
     rows = []
     for r in range(dcells.shape[0]):
-        toks, _, m, bonus, new_bases = corrected.spec_round(
-            dft, tgt, roots, bases, seqs, dcells[r], tcells[r], active=active, samp=samp,
-            tsample=tsample, gen=gen)
-        if trim is None:
-            corrected.drop_rejected(dft, tgt, dcells[r], tcells[r], m)
-        else:
-            trim(new_bases)
-        rows.append(torch.cat([corrected.commit_rows(toks, m, bonus),
-                               m[:, None].to(torch.int32)], dim=1))
+        with trace.span("lanes.round", args=(("round", r),)) if trace.on else trace.OFF:
+            toks, _, m, bonus, new_bases = corrected.spec_round(
+                dft, tgt, roots, bases, seqs, dcells[r], tcells[r], active=active, samp=samp,
+                tsample=tsample, gen=gen)
+            if trim is None:
+                corrected.drop_rejected(dft, tgt, dcells[r], tcells[r], m)
+            else:
+                trim(new_bases)
+            rows.append(torch.cat([corrected.commit_rows(toks, m, bonus),
+                                   m[:, None].to(torch.int32)], dim=1))
         roots, bases = bonus, new_bases
     return torch.stack(rows), roots, bases
 
@@ -117,17 +120,20 @@ def enqueue(dft: InferenceContext, tgt: InferenceContext, roots, bases, seqs, dc
     (whose mirrors the caller has marked) and start its non-blocking fetch.
     Returns (handle, roots, bases): handle.fetch() -> pack [R, S, depth+2].
     The cache's hot window is refreshed from the mirrors first, so it
-    covers every cell the dispatch writes."""
+    covers every cell the dispatch writes. While tracing, the rounds are a
+    `dev.dispatch` device span, recorded before the handle's completion
+    event."""
     from .fused import draft_samp
 
     dft._refresh_hot()
     tgt._refresh_hot()
     samp = draft_samp(sampling)
-    pack, roots, bases = device_rounds(
-        dft, tgt, roots, bases, seqs, h2d(dcells.astype(np.int32), dft.device),
-        h2d(tcells.astype(np.int32), tgt.device), active=active, samp=samp,
-        tsample=sampling.temp > 0, trim=trim,
-        gen=device_generator(tgt.device, seed) if samp is not None else None)
+    with trace.dev("dev.dispatch") if trace.on else trace.OFF:
+        pack, roots, bases = device_rounds(
+            dft, tgt, roots, bases, seqs, h2d(dcells.astype(np.int32), dft.device),
+            h2d(tcells.astype(np.int32), tgt.device), active=active, samp=samp,
+            tsample=sampling.temp > 0, trim=trim,
+            gen=device_generator(tgt.device, seed) if samp is not None else None)
     host, event = to_host_async(pack)
     return AsyncHandle(logits=pack, decode=host.numpy, cells=tcells, event=event), roots, bases
 

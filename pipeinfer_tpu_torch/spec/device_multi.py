@@ -42,6 +42,7 @@ import torch
 
 from ..runtime import kv_cache as kv
 from ..runtime.context import Batch, CacheFull, InferenceContext, h2d
+from ..utils import trace
 from .device_loop import MAX_INFLIGHT, check_engine_args, enqueue, supported
 from .params import SpecParams, entropy_seed
 from .sync_spec import SpecStats
@@ -292,6 +293,7 @@ class LaneHandle:
     error: str | None = None
     cancel: bool = False  # cooperative early stop (server stop sequences)
     stats: SpecStats = dataclasses.field(default_factory=SpecStats)
+    rid: int = -1  # the serving request's id, under which the tracer stamps it
     # internal lane binding
     _lane: int = -1
     _host_base: int = 0
@@ -390,11 +392,11 @@ class DeviceLoopServer:
     # -- request lifecycle ---------------------------------------------------
 
     def submit(self, prompt_ids, n_predict, *, on_token=None,
-               ignore_eos=False) -> LaneHandle:
+               ignore_eos=False, rid: int = -1) -> LaneHandle:
         if not prompt_ids:
             raise ValueError("empty prompt")
         h = LaneHandle(prompt_ids=list(prompt_ids), n_predict=n_predict,
-                       on_token=on_token, ignore_eos=ignore_eos)
+                       on_token=on_token, ignore_eos=ignore_eos, rid=rid)
         self.queue.append(h)
         return h
 
@@ -420,7 +422,8 @@ class DeviceLoopServer:
                 self.queue.remove(h)
                 h.done = True
         progress += self._collect(block=block)
-        self._retire_quiescent()
+        with trace.span("lanes.retire") if trace.on else trace.OFF:
+            self._retire_quiescent()
         if self.queue:
             progress += self._admit()
         while len(self.inflight) < self.MAX_INFLIGHT and self._dispatch():
@@ -444,13 +447,77 @@ class DeviceLoopServer:
         prefill per model for ALL admissions this step (the
         BatchedDeviceLoop prefill shape), then lane-wise (roots, bases)
         device updates."""
+        with trace.span("lanes.admit") if trace.on else trace.OFF as sp:
+            with trace.span("lanes.admit.plan") if trace.on else trace.OFF:
+                take, free = self._plan_admission()
+            if not take:
+                return 0
+            if trace.on:
+                sp.note(rid=take[0].rid if len(take) == 1 else -1,
+                        args=(("rids", tuple(h.rid for h in take)),
+                              ("prompt_lens", tuple(len(h.prompt_ids) for h in take))))
+                for h in take:
+                    trace.stamp(h.rid, "admit", getattr(sp, "t0", None))
+
+            with trace.span("lanes.admit.enqueue") if trace.on else trace.OFF:
+                bt, bd = Batch(), Batch()
+                for h, lane in zip(take, free):
+                    seq = self.seq_base + lane
+                    self.tgt.seq_rm(seq, 0, -1)
+                    self.dft.seq_rm(seq, 0, -1)
+                    for i, t in enumerate(h.prompt_ids):
+                        last = i == len(h.prompt_ids) - 1
+                        bt.add(t, i, seq, want_logits=last)
+                        bd.add(t, i, seq, want_logits=last)
+                try:
+                    self.dft.decode_async(bd, topk=min(128, self.dft.cfg.n_vocab))
+                    pending = self.tgt.decode_async(bt, topk=min(128, self.tgt.cfg.n_vocab))
+                except CacheFull:
+                    # admission raced another engine on the shared pool: requeue
+                    for h, lane in zip(take, free):
+                        self.tgt.seq_rm(self.seq_base + lane, 0, -1)
+                        self.dft.seq_rm(self.seq_base + lane, 0, -1)
+                    self.queue = take + self.queue
+                    return 0
+            with trace.span("lanes.admit.wait") if trace.on else trace.OFF:
+                rows = pending.fetch()
+            ends = np.cumsum([len(h.prompt_ids) for h in take]) - 1
+
+            mask = np.zeros(self.S, bool)
+            roots = np.zeros(self.S, np.int32)
+            bases = np.zeros(self.S, np.int32)
+            for j, (h, lane) in enumerate(zip(take, free)):
+                root = _root_token(self.sampling, rows[ends[j]], lane)
+                h.tokens.append(root)
+                h.stats.n_predict = 1
+                if h.on_token:
+                    h.on_token(root)
+                h._lane = lane
+                h._host_base = len(h.prompt_ids)
+                if h.n_predict <= 1 or (not h.ignore_eos and root == self.eos_id):
+                    h._retiring = True
+                self.lanes[lane] = h
+                mask[lane], roots[lane], bases[lane] = True, root, len(h.prompt_ids)
+
+            # lane-wise update of the chained device vectors (no fetch: a
+            # masked where keeps the dispatch pipeline asynchronous)
+            dev = self.tgt.device
+            mask_d = h2d(mask, dev)
+            self.roots_dev = torch.where(mask_d, h2d(roots, dev), self.roots_dev)
+            self.bases_dev = torch.where(mask_d, h2d(bases, dev), self.bases_dev)
+            self._retire_quiescent()
+            return len(take)
+
+    def _plan_admission(self) -> tuple[list, list]:
+        """(queued requests to admit, free quiescent lanes for them) within
+        the cell budget; fails the requests no pool could hold."""
         free = [
             i for i, h in enumerate(self.lanes)
             if h is None and self._lane_inflight[i] == 0
         ]
-        if not free:
-            return 0
         take = []
+        if not free:
+            return take, free
         usable = min(self.tgt.n_cells, self.dft.n_cells) - 1
         # free cells minus the running lanes' OUTSTANDING growth (every
         # running lane will still commit its remaining n_predict) and one
@@ -476,54 +543,7 @@ class DeviceLoopServer:
             free_cells -= need
             self.queue.remove(h)
             take.append(h)
-        if not take:
-            return 0
-
-        bt, bd = Batch(), Batch()
-        for h, lane in zip(take, free):
-            seq = self.seq_base + lane
-            self.tgt.seq_rm(seq, 0, -1)
-            self.dft.seq_rm(seq, 0, -1)
-            for i, t in enumerate(h.prompt_ids):
-                last = i == len(h.prompt_ids) - 1
-                bt.add(t, i, seq, want_logits=last)
-                bd.add(t, i, seq, want_logits=last)
-        try:
-            self.dft.decode_async(bd, topk=min(128, self.dft.cfg.n_vocab))
-            rows = self.tgt.decode(bt, topk=min(128, self.tgt.cfg.n_vocab))
-        except CacheFull:
-            # admission raced another engine on the shared pool: requeue
-            for h, lane in zip(take, free):
-                self.tgt.seq_rm(self.seq_base + lane, 0, -1)
-                self.dft.seq_rm(self.seq_base + lane, 0, -1)
-            self.queue = take + self.queue
-            return 0
-        ends = np.cumsum([len(h.prompt_ids) for h in take]) - 1
-
-        mask = np.zeros(self.S, bool)
-        roots = np.zeros(self.S, np.int32)
-        bases = np.zeros(self.S, np.int32)
-        for j, (h, lane) in enumerate(zip(take, free)):
-            root = _root_token(self.sampling, rows[ends[j]], lane)
-            h.tokens.append(root)
-            h.stats.n_predict = 1
-            if h.on_token:
-                h.on_token(root)
-            h._lane = lane
-            h._host_base = len(h.prompt_ids)
-            if h.n_predict <= 1 or (not h.ignore_eos and root == self.eos_id):
-                h._retiring = True
-            self.lanes[lane] = h
-            mask[lane], roots[lane], bases[lane] = True, root, len(h.prompt_ids)
-
-        # lane-wise update of the chained device vectors (no fetch: a
-        # masked where keeps the dispatch pipeline asynchronous)
-        dev = self.tgt.device
-        mask_d = h2d(mask, dev)
-        self.roots_dev = torch.where(mask_d, h2d(roots, dev), self.roots_dev)
-        self.bases_dev = torch.where(mask_d, h2d(bases, dev), self.bases_dev)
-        self._retire_quiescent()
-        return len(take)
+        return take, free
 
     def _dispatch(self) -> bool:
         live = [
@@ -539,58 +559,77 @@ class DeviceLoopServer:
             for lv, h in zip(live, self.lanes)
         ):
             return False
-        active = np.array(live)
-        try:
-            dcells = _lane_cells(self.dft, active, R, depth)
-            tcells = _lane_cells(self.tgt, active, R, depth + 1)
-        except CacheFull:
-            return False
-        for lane in np.nonzero(active)[0]:
-            hint = self.lanes[lane]._host_base + len(self.inflight) * R * (depth + 1)
-            seq_row = kv.host_only(self.seq_base + lane)
-            _mark(self.dft, dcells[:, lane], hint, seq_row)
-            _mark(self.tgt, tcells[:, lane], hint, seq_row)
-        handle, self.roots_dev, self.bases_dev = enqueue(
-            self.dft, self.tgt, self.roots_dev, self.bases_dev, self._slots.seqs, dcells,
-            tcells, sampling=self.sampling, seed=self._seed_base * 9176 + self._key_i,
-            active=h2d(active, self.tgt.device), trim=self._slots.trim)
-        self._key_i += 1
-        self.inflight.append((handle, active, dcells, tcells))
-        self._lane_inflight[active] += 1
+        with trace.span("lanes.dispatch") if trace.on else trace.OFF as sp:
+            active = np.array(live)
+            with trace.span("lanes.dispatch.cells") if trace.on else trace.OFF:
+                try:
+                    dcells = _lane_cells(self.dft, active, R, depth)
+                    tcells = _lane_cells(self.tgt, active, R, depth + 1)
+                except CacheFull:
+                    return False
+                for lane in np.nonzero(active)[0]:
+                    hint = self.lanes[lane]._host_base + len(self.inflight) * R * (depth + 1)
+                    seq_row = kv.host_only(self.seq_base + lane)
+                    _mark(self.dft, dcells[:, lane], hint, seq_row)
+                    _mark(self.tgt, tcells[:, lane], hint, seq_row)
+            with trace.span("lanes.dispatch.enqueue") if trace.on else trace.OFF:
+                handle, self.roots_dev, self.bases_dev = enqueue(
+                    self.dft, self.tgt, self.roots_dev, self.bases_dev, self._slots.seqs,
+                    dcells, tcells, sampling=self.sampling,
+                    seed=self._seed_base * 9176 + self._key_i,
+                    active=h2d(active, self.tgt.device), trim=self._slots.trim)
+            self._key_i += 1
+            self.inflight.append((handle, active, dcells, tcells))
+            self._lane_inflight[active] += 1
+            if trace.on:
+                sp.note(args=(("bases", tuple(h._host_base for h, lv in zip(self.lanes, live)
+                                              if lv)),
+                              ("lane_rounds", self.S * R),
+                              ("live_lane_rounds", int(active.sum()) * R)))
         return True
 
     def _collect(self, block: bool = False) -> int:
         n_committed = 0
         R, depth = self.rounds, self.sp.n_draft
-        while self.inflight and (block or self.inflight[0][0].ready()):
-            block = False  # only block for the oldest pack
-            handle, active, dcells, tcells = self.inflight.pop(0)
-            host_pack = handle.fetch()  # [R, S, depth+2]
-            for lane in np.nonzero(active)[0]:
-                h = self.lanes[lane]
-                self._lane_inflight[lane] -= 1
-                seq = self.seq_base + lane
-                h.stats.n_rounds += R
-                for r in range(R):
-                    m = int(host_pack[r, lane, depth + 1])
-                    h.stats.n_drafted += depth
-                    kv.reclaim_cells(self.dft, dcells[r, lane], min(m + 1, depth),
-                                     h._host_base, seq)
-                    kv.reclaim_cells(self.tgt, tcells[r, lane], m + 1, h._host_base, seq)
-                    h._host_base += m + 1
-                    if h._retiring:
-                        h.stats.n_drafted_unverified += depth
-                        continue
-                    h.stats.n_accept += m
-                    for t in host_pack[r, lane, : m + 1].tolist():
-                        h.tokens.append(t)
-                        n_committed += 1
-                        if h.on_token:
-                            h.on_token(t)
-                        if len(h.tokens) >= h.n_predict or (
-                                not h.ignore_eos and t == self.eos_id):
-                            h._retiring = True
-                            break
+        with trace.span("lanes.collect") if trace.on else trace.OFF:
+            while self.inflight and (block or self.inflight[0][0].ready()):
+                block = False  # only block for the oldest pack
+                handle, active, dcells, tcells = self.inflight.pop(0)
+                with trace.span("lanes.collect.wait") if trace.on else trace.OFF:
+                    host_pack = handle.fetch()  # [R, S, depth+2]
+                if trace.on:  # this pack's dev.dispatch has completed with it
+                    trace.resolve_ready()
+                with trace.span("lanes.commit") if trace.on else trace.OFF as sp:
+                    discarded = 0
+                    for lane in np.nonzero(active)[0]:
+                        h = self.lanes[lane]
+                        self._lane_inflight[lane] -= 1
+                        seq = self.seq_base + lane
+                        h.stats.n_rounds += R
+                        for r in range(R):
+                            m = int(host_pack[r, lane, depth + 1])
+                            h.stats.n_drafted += depth
+                            kv.reclaim_cells(self.dft, dcells[r, lane], min(m + 1, depth),
+                                             h._host_base, seq)
+                            kv.reclaim_cells(self.tgt, tcells[r, lane], m + 1, h._host_base,
+                                             seq)
+                            h._host_base += m + 1
+                            if h._retiring:
+                                h.stats.n_drafted_unverified += depth
+                                discarded += 1
+                                continue
+                            h.stats.n_accept += m
+                            for t in host_pack[r, lane, : m + 1].tolist():
+                                h.tokens.append(t)
+                                n_committed += 1
+                                if h.on_token:
+                                    h.on_token(t)
+                                if len(h.tokens) >= h.n_predict or (
+                                        not h.ignore_eos and t == self.eos_id):
+                                    h._retiring = True
+                                    break
+                    if trace.on:
+                        sp.note(args=(("retiring_lane_rounds", discarded),))
         return n_committed
 
     def abort_all(self, msg: str):

@@ -23,13 +23,13 @@ reclaimed with one fused seq_rm on each context.
 from __future__ import annotations
 
 import itertools
-import time
 from collections import deque
 from dataclasses import dataclass, field
 
 from ..runtime.context import InferenceContext
 from ..runtime.kv_cache import SEQ_WORDS
 from ..sampling.samplers import SamplingParams
+from ..utils import trace
 from .controller import PipeInferController
 from .params import SpecParams
 
@@ -48,7 +48,7 @@ class SpecRequest:
     ignore_eos: bool = False
     grammar: object = None  # parsed GrammarState (server grammar parity)
     n_probs: int = 0  # record top-n (id, prob) per token into `probs`
-    t_submit: float = field(default_factory=time.perf_counter)
+    rid: int = -1  # the serving request's id, under which the tracer stamps it
 
     # filled by the engine
     ctrl: PipeInferController | None = None
@@ -57,8 +57,6 @@ class SpecRequest:
     probs: list = field(default_factory=list)
     done: bool = False
     error: str | None = None
-    t_start: float = -1.0
-    t_done: float = -1.0
 
     def cells_needed(self, sp: SpecParams) -> int:
         """Worst-case KV cells: committed stream + every in-flight run
@@ -128,6 +126,7 @@ class MultiPipeInfer:
         ignore_eos: bool = False,
         grammar=None,
         n_probs: int = 0,
+        rid: int = -1,
     ) -> SpecRequest:
         req = SpecRequest(
             id=next(self._ids),
@@ -138,6 +137,7 @@ class MultiPipeInfer:
             ignore_eos=ignore_eos,
             grammar=grammar,
             n_probs=n_probs,
+            rid=rid,
         )
         self.pending.append(req)
         return req
@@ -152,7 +152,6 @@ class MultiPipeInfer:
             self.pending.remove(req)
             req.tokens = []
             req.done = True
-            req.t_done = time.perf_counter()
             return
         if req.ctrl is not None:
             req.ctrl._stopped_flag = True
@@ -168,7 +167,6 @@ class MultiPipeInfer:
                     f"KV cells, cache has {usable}"
                 )
                 req.done = True
-                req.t_done = time.perf_counter()
                 continue
             if self._reserved + need > usable:
                 break  # wait for a running stream to release cells
@@ -191,7 +189,8 @@ class MultiPipeInfer:
             )
             req.ctrl = ctrl
             req.seq_base = base
-            req.t_start = time.perf_counter()
+            if trace.on:
+                trace.stamp(req.rid, "admit")
             ctrl.start_generation(
                 req.prompt_ids, req.n_predict,
                 ignore_eos=req.ignore_eos, stream=req.stream,
@@ -205,7 +204,6 @@ class MultiPipeInfer:
         req.tokens = req.ctrl.finish_generation()
         req.probs = req.ctrl.probs
         req.done = True
-        req.t_done = time.perf_counter()
         # reclaim every slot in this stream's namespace (committed cells live
         # on seq_base; branch slots should already be clear, but a canceled
         # drain may leave stragglers)
@@ -222,7 +220,6 @@ class MultiPipeInfer:
         for req in list(self.pending) + list(self.active):
             req.error = msg
             req.done = True
-            req.t_done = time.perf_counter()
         self.pending.clear()
         for req in list(self.active):
             for s in range(req.seq_base, req.seq_base + self.stride):

@@ -616,6 +616,45 @@ def test_nano_device_loops_on_card_match_cpu(cuda, tmp_path, monkeypatch):
     assert streams["cpu"][0] == streams["cpu"][1][0]
 
 
+def test_tracer_device_spans_on_card(cuda, tmp_path, monkeypatch):
+    """The 4-lane DeviceLoopServer traced on the card: one dev.dispatch
+    per dispatch, on the perf_counter clock after the lanes.dispatch.enqueue
+    span that launched it and around its R lanes.round launches' work, no
+    span skipped or left pending, and anchors that agree within 1 ms."""
+    from pipeinfer_tpu_torch.spec.device_multi import DeviceLoopServer
+    from pipeinfer_tpu_torch.utils import trace
+
+    monkeypatch.setenv("PIPEINFER_WEIGHT_LAYOUT", "i4g")
+    testmodel.build_bench_pair(tmp_path / "t.gguf", tmp_path / "d.gguf", scale="nano", eps=0.5)
+    greedy = SamplingParams(temp=0.0, penalty_repeat=1.0, penalty_last_n=0)
+    tgt, dft = (InferenceContext(*load_model(tmp_path / f, device="cuda"), n_cells=1024,
+                                 device="cuda") for f in ("t.gguf", "d.gguf"))
+    srv = DeviceLoopServer(tgt, dft, greedy, SpecParams(n_draft=8), n_lanes=4, seq_base=60,
+                           rounds=4, eos_id=-1)
+    prompts = [list(range(5, 25)), [1, 9, 33], [7] * 5, list(range(40, 47)), [2] * 11]
+    trace.enable(cuda)
+    try:
+        hs = [srv.submit(p, 40, rid=i) for i, p in enumerate(prompts)]
+        srv.run_until_idle()
+    finally:
+        trace.disable()
+    assert all(h.done and h.error is None for h in hs)
+    snap = trace.snapshot()
+    assert snap["counters"] == dict(spans_dropped=0, stamps_dropped=0, device_spans_skipped=0,
+                                    errors=0)
+    assert trace._st.pending == [] and len(trace._st.pool) == trace.POOL
+    assert abs(snap["anchors"]["drift_ns"]) < 1e6
+    host = {s[3]: s for s in snap["spans"]}
+    enq = [s for s in snap["spans"] if s[0] == "lanes.dispatch.enqueue"]
+    dev = snap["device_spans"]
+    assert [d[0] for d in dev] == ["dev.dispatch"] * len(enq) and enq
+    for name, t0, t1, sid in dev:
+        assert host[sid][0] == "lanes.dispatch.enqueue"
+        assert host[sid][1] - 200_000 <= t0 <= t1  # the device starts after the launch (0.2 ms slack)
+        rounds = [s for s in snap["spans"] if s[0] == "lanes.round" and s[4] == sid]
+        assert len(rounds) == 4 and t1 >= rounds[-1][1] - 200_000
+
+
 def test_clip_encode_and_decode_embd_on_card_match_cpu(cuda, tmp_path, monkeypatch):
     """The nano CLIP tower and projector on the card against the CPU within
     live_check.CLIP_RTOL; decode_embd of its embeddings into a Q4_K llama
